@@ -11,10 +11,15 @@ at EC(8,3) with 1 MiB blocks:
 
   1. device line: name, count, `nvidia-smi` name and power limit
   2. build: both kernels, build seconds, ptxas register/spill lines,
-     and the int32 opcodes in K2's SASS (the count its bound uses)
+     and the int32 opcodes and shared-memory loads in the SASS of K2
+     (the count its bound uses) and of K1's two table widths
   3. K1 (GF(2^8) coding) vs `gf_bitmatmul`: EC(8,3) encode at B=64,
      S=131072; two EC(8,3) repair patterns; EC(16,4) encode at
-     S=65536; a ragged S.  Kernel and plain times, bound, GB/s
+     S=65536; a ragged S and a byte-path S; r = 6 and r = 12 (8-byte
+     table entries, one and two output groups); q = 1 with an arbitrary
+     0/1 matrix.  Kernel time over 50 calls and over a CUDA-graph
+     replay of 50 launches (the card's time without the host), plain
+     time, bound, GB/s
   4. K2 (BLAKE3) vs `blake3_batch_ref` on (64*11, 131072) rows and on
      L in {64, 1024, 4096}; a few rows vs the pure-Python oracle
   5. the slice, with every launch counter set to 0 just before it:
@@ -52,6 +57,7 @@ from garage_tpu_torch.ops.ec_cuda import (
     coding_state_from_numpy, gf_bitmatmul, gf_bitmatmul_cuda,
 )
 from garage_tpu_torch.ops.hash_cuda import blake3_batch, blake3_batch_ref
+from garage_tpu_torch.tools.timing import graph_ms, time_ms
 from garage_tpu_torch.utils.metrics import registry
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, at the 700 W limit
@@ -83,10 +89,12 @@ def smi(query: str) -> str:
 
 
 def sass_int_ops(so_path, kernel: str) -> dict[str, int] | None:
-    """Counts of the int32 opcodes (IADD3, IMAD, LOP3, SHF, PRMT; IMAD by
-    its full name, since IMAD.IADD is an add and IMAD.MOV a move) in one
-    kernel's SASS, read with cuobjdump: a check on BLAKE3_ALU_ONLY_OPS and
-    BLAKE3_ADD_OPS.  None where cuobjdump is missing."""
+    """Counts of the int32 opcodes (IADD3, IMAD, LOP3, SHF, PRMT) and the
+    shared-memory loads (LDS) in one kernel's SASS, read with cuobjdump;
+    IMAD and LDS by their full names, since IMAD.IADD is an add and
+    IMAD.MOV a move, and LDS.64 moves two words.  A check on the
+    instruction counts the bounds and PERF.md use.  None where cuobjdump
+    is missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -96,25 +104,11 @@ def sass_int_ops(so_path, kernel: str) -> dict[str, int] | None:
         if kernel in part.splitlines()[0]:
             ops = re.findall(
                 r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9.]*)", part)
-            names = [op if op.startswith("IMAD") else op.split(".")[0] for op in ops]
+            names = [op if op.startswith(("IMAD", "LDS")) else op.split(".")[0]
+                     for op in ops]
             return {op: names.count(op) for op in sorted(set(names))
-                    if op.split(".")[0] in ("IADD3", "IMAD", "LOP3", "SHF", "PRMT")}
+                    if op.split(".")[0] in ("IADD3", "IMAD", "LOP3", "SHF", "PRMT", "LDS")}
     raise SmokeFailure(f"{kernel} not found in the SASS of {so_path}")
-
-
-def time_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call over `iters` calls, by CUDA events,
-    after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def rand_u8(shape, gen, dev) -> torch.Tensor:
@@ -136,21 +130,29 @@ def diff(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
 
 
 def check_k1(dev, gen) -> dict:
-    enc83 = gf.cauchy_parity_matrix(K, M)
+    enc83 = gf.bitmatrix_of(gf.cauchy_parity_matrix(K, M))
     others = [i for i in range(K + M) if i != 2]
     lost3 = [0, 3, 6]
     keep3 = [i for i in range(K + M) if i not in lost3]
-    cases = [
+    rng = np.random.default_rng(SEED)
+    cases = [  # (name, q, B, S, (8r, 8q) bit-matrix)
         ("ec83_encode", K, 64, 131072, enc83),
-        ("ec83_lose1", K, 64, 131072, gf.reconstruction_matrix(K, M, others, [2])),
-        ("ec83_lose3", K, 64, 131072, gf.reconstruction_matrix(K, M, keep3, lost3)),
-        ("ec164_encode", 16, 64, 65536, gf.cauchy_parity_matrix(16, 4)),
+        ("ec83_lose1", K, 64, 131072,
+         gf.bitmatrix_of(gf.reconstruction_matrix(K, M, others, [2]))),
+        ("ec83_lose3", K, 64, 131072,
+         gf.bitmatrix_of(gf.reconstruction_matrix(K, M, keep3, lost3))),
+        ("ec164_encode", 16, 64, 65536, gf.bitmatrix_of(gf.cauchy_parity_matrix(16, 4))),
         ("ec83_ragged", K, 8, 4160, enc83),
         ("ec83_bytepath", K, 8, 4099, enc83),
+        # 8-byte table entries: r = 6 in one output group, r = 12 in two
+        ("ec126_encode", 12, 16, 65536, gf.bitmatrix_of(gf.cauchy_parity_matrix(12, 6))),
+        ("ec2012_encode", 20, 8, 65536, gf.bitmatrix_of(gf.cauchy_parity_matrix(20, 12))),
+        # q = 1 with an arbitrary 0/1 matrix (no GF expansion), r = 5
+        ("q1_arbitrary", 1, 64, 65536, rng.integers(0, 2, (40, 8), dtype=np.uint8)),
     ]
     rows = {}
-    for name, q, b, s, coding in cases:
-        bm = coding_state_from_numpy(coding, dev)["bitmat"]
+    for name, q, b, s, bm_np in cases:
+        bm = torch.from_numpy(bm_np).to(dev)
         r = bm.shape[0] // 8
         x = rand_u8((b, q, s), gen, dev)
         got = gf_bitmatmul_cuda(bm, x)
@@ -159,6 +161,7 @@ def check_k1(dev, gen) -> dict:
         mism, err = diff(got, want)
         out = torch.empty_like(got)
         kern_ms = time_ms(lambda: gf_bitmatmul_cuda(bm, x, out=out), 50)
+        card_ms = graph_ms(lambda: gf_bitmatmul_cuda(bm, x, out=out), 50)
         plain_ms = time_ms(lambda: gf_bitmatmul(bm, x), 3)
         nbytes = b * q * s + b * r * s + bm.numel()
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -167,7 +170,7 @@ def check_k1(dev, gen) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms,
         }
         print(f"K1 {name}: B={b} q={q} r={r} S={s} mismatches={mism} "
-              f"kernel_ms={kern_ms:.6f} plain_ms={plain_ms:.6f} "
+              f"kernel_ms={kern_ms:.6f} graph_ms={card_ms:.6f} plain_ms={plain_ms:.6f} "
               f"bound_us={bound_ms * 1e3:.3f} achieved_GBps="
               f"{nbytes / (kern_ms * 1e-3) / 1e9:.3f} "
               f"bound_share={bound_ms / kern_ms:.4f}")
@@ -375,6 +378,10 @@ def main() -> int:
     print(f"sass blake3_small_kernel (one compression in its loop): "
           f"{ops if ops is None else json.dumps(ops)} "
           f"counted: alu_only={BLAKE3_ALU_ONLY_OPS} adds={BLAKE3_ADD_OPS}")
+    for width in (4, 8):
+        ops = sass_int_ops(_build._target("gf_bitplane"), f"gf_bitplane_kernelILi{width}E")
+        print(f"sass gf_bitplane_kernel<{width}> (whole kernel): "
+              f"{ops if ops is None else json.dumps(ops)}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)

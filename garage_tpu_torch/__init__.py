@@ -26,6 +26,8 @@ found under the same name):
   ops/_build.py         nvcc build of csrc/ at first use, ctypes binding
   ops/gf.py, ops/blake3_ref.py  numpy / pure-Python oracles
   utils/                the small host helpers the layers above call
+  tools/                kernel timing on the card (CUDA events, graph
+                        replay) and the K1 variant comparison
 
 Import rule: this package imports `torch` and `numpy` and never `jax`,
 and it imports nothing from `garage_tpu` — not even its JAX-free

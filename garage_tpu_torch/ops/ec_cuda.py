@@ -15,9 +15,11 @@ over bit-unpacked shards, batched over blocks.  Two versions compute it:
    re-pack.  It runs for CPU tensors and is the yardstick on the card.
 
 2. `gf_bitmatmul_cuda` — the wrapper of kernel K1 (csrc/gf_bitplane.cu),
-   which folds each 8x8 block of M into a byte lookup table in shared
-   memory and streams the shards through it once.  It launches for a
-   CUDA tensor and runs the plain version for a CPU tensor.
+   which folds M into 16-entry nibble tables in shared memory, one per
+   input shard and nibble half, whose entries pack the products for up
+   to 8 output rows, and streams the shards through them once.  It
+   launches for a CUDA tensor and runs the plain version for a CPU
+   tensor.
 
 The matrix is an argument: encode, decode and every repair erasure
 pattern share one kernel.  `EcCuda` is the batched host API the block

@@ -36,7 +36,7 @@ def dev():
 def _matrices(k: int, m: int, rng) -> list[np.ndarray]:
     """Encode, two repair patterns and one arbitrary 0/1 matrix, each
     (8m, 8k)."""
-    lost = [0, k - 1, k, k + 1][:m]
+    lost = ([0, k - 1] + list(range(k, k + m)))[:m]
     keep = [i for i in range(k + m) if i not in lost]
     return [
         gf.bitmatrix_of(gf.cauchy_parity_matrix(k, m)),
@@ -48,6 +48,9 @@ def _matrices(k: int, m: int, rng) -> list[np.ndarray]:
 
 @pytest.mark.parametrize("k,m,s", [
     (4, 2, 128), (8, 3, 1024), (16, 4, 4096), (4, 2, 100), (8, 3, 4099),
+    # 8-byte table entries (r > 4): one output group; two groups on the
+    # byte path (S % 16 != 0); and a small q
+    (6, 6, 4096), (12, 12, 1000), (2, 3, 4096),
 ])
 def test_gf_kernel_matches_plain(dev, k, m, s):
     rng = np.random.default_rng(k * 1000 + s)
