@@ -27,8 +27,19 @@ at EC(8,3) with 1 MiB blocks:
      vs the numpy oracle, every piece hash vs the plain hasher on the
      card), degraded GETs in four erasure patterns, a repair batch, and
      a 256-block ScrubRepairPipeline batch vs the plain versions
-  6. one JSON line listing each kernel: launches in phase 5, mismatches,
-     times and bound
+  6. the mesh fan-out (K6) over an explicit 4-entry mesh: 4 cards where
+     4 are visible, else 4 entries on card 0, one stream each.  With the
+     launch counters set to 0 just before it: EC(8,3) encode of 256 1 MiB
+     blocks through EcCodec.encode_batch; EC(16,4) encode and repair of
+     259 1 MiB blocks that lose ranks {0, 5, 17, 19}; `sharded_apply` of
+     EC(8,3) at 11 and 259 blocks; `dryrun_multichip(4)`.  Then each is
+     held against the single-device path, the oracle or the original
+     shards, `tpu_mesh_engaged_total` is read, the 4-entry and 1-entry
+     runs are timed in turns, and the fan-out of K1 at the 256-block
+     encode is timed (eager and by CUDA-graph replay) against one launch
+     and against the plain version
+  7. one JSON line listing each kernel: launches in phase 5 (in phase 6
+     for the fan-out), mismatches, times and bound
 
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero without it, as does a machine without CUDA.
@@ -50,13 +61,15 @@ import torch
 
 from garage_tpu_torch.block.codec.ec import EcCodec
 from garage_tpu_torch.block.codec_batch import CodecBatcher
+from garage_tpu_torch.graft_entry import dryrun_multichip
 from garage_tpu_torch.models.pipeline import ScrubRepairPipeline, scrub_stats
 from garage_tpu_torch.ops import _build, gf
 from garage_tpu_torch.ops.blake3_ref import blake3
 from garage_tpu_torch.ops.ec_cuda import (
-    coding_state_from_numpy, gf_bitmatmul, gf_bitmatmul_cuda,
+    EcCuda, coding_state_from_numpy, ec_apply_mesh, gf_bitmatmul, gf_bitmatmul_cuda,
 )
 from garage_tpu_torch.ops.hash_cuda import blake3_batch, blake3_batch_ref
+from garage_tpu_torch.parallel.mesh import make_mesh
 from garage_tpu_torch.tools.timing import graph_ms, time_ms
 from garage_tpu_torch.utils.metrics import registry
 
@@ -352,6 +365,183 @@ def run_slice(dev, gen) -> dict:
     return {"hash_mismatches": hash_mism}
 
 
+# --- phase 6: the mesh fan-out ----------------------------------------------------
+
+MESH_N = 4
+LOST164 = [0, 5, 17, 19]
+
+
+def compute_s(kernel: str) -> float:
+    """Kernel seconds (CUDA events) the dispatch telemetry has recorded
+    for `kernel` so far."""
+    return registry.durations.get(
+        ("tpu_codec_compute_duration", (("kernel", kernel),)), (0, 0.0))[1]
+
+
+def engaged(kernel: str, platform: str) -> float:
+    return registry.counters.get(("tpu_mesh_engaged_total", (
+        ("kernel", kernel), ("platform", platform), ("devices", str(MESH_N)))), 0.0)
+
+
+def host_fold(hashes: np.ndarray) -> int:
+    words = hashes.reshape(-1, 4).astype(np.uint32) @ (256 ** np.arange(4)).astype(np.uint32)
+    return int(np.bitwise_xor.reduce(words))
+
+
+def drive_mesh(dev, mesh) -> dict:
+    """The fan-out's main path, with the launch counters set to 0 just
+    before it and read just after, then its checks (whose launches are
+    not counted).  Returns the counts and what `time_mesh` reuses."""
+    rng = np.random.default_rng(SEED + 6)
+    s83 = BLOCK // K
+    raw83 = rng.integers(0, 256, (256, K, s83), dtype=np.uint8)
+    blocks83 = [raw83[i].tobytes() for i in range(256)]
+    k2, m2 = 16, 4
+    raw164 = rng.integers(0, 256, (259, k2, BLOCK // k2), dtype=np.uint8)
+    blocks164 = [raw164[i].tobytes() for i in range(259)]
+    pipe = ScrubRepairPipeline(K, M, s83, device=dev)
+    scrub_data = {b: rng.integers(0, 256, (b, K, s83), dtype=np.uint8) for b in (11, 259)}
+    codec83 = EcCodec(K, M, device=dev, mesh=mesh)
+    codec164 = EcCodec(k2, m2, device=dev, mesh=mesh)
+    plat = dev.type
+    engaged0 = {kern: engaged(kern, plat) for kern in ("ec_encode", "ec_reconstruct")}
+
+    gf_bitmatmul_cuda.launches = 0
+    blake3_batch.launches = 0
+    enc83 = codec83.encode_batch(blocks83)
+    pieces164 = codec164.encode_batch(blocks164)
+    batches = [({j: p for j, p in enumerate(pieces) if j not in LOST164}, LOST164, BLOCK)
+               for pieces in pieces164]
+    rebuilt = codec164.reconstruct_batch(batches)
+    scrubbed = {b: pipe.sharded_apply(mesh, x) for b, x in scrub_data.items()}
+    dryrun_multichip(MESH_N, devices=mesh.devices)
+    launches = {"gf": gf_bitmatmul_cuda.launches, "blake3": blake3_batch.launches}
+    if dev.type == "cuda":
+        require(launches["gf"] > 0, "the mesh phase never launched K1")
+        require(launches["blake3"] > 0, "the mesh phase never launched K2")
+    for kern, before in engaged0.items():
+        require(engaged(kern, plat) > before,
+                f"tpu_mesh_engaged_total{{kernel={kern}}} did not move")
+    print(f"mesh phase launches: K1 {launches['gf']}, K2 {launches['blake3']}; "
+          f"tpu_mesh_engaged_total devices={MESH_N}: ec_encode {engaged('ec_encode', plat):.0f}, "
+          f"ec_reconstruct {engaged('ec_reconstruct', plat):.0f}")
+
+    mism = 0
+    # EC(8,3) encode: against the single-device path, a sample against the oracle
+    par83 = np.stack([np.frombuffer(b"".join(p[K:]), dtype=np.uint8).reshape(M, s83)
+                      for p in enc83])
+    mism += int((par83 != EcCuda(K, M, device=dev, n_devices=1).encode(raw83)).sum())
+    require(all(p[:K] == [bytes(d) for d in raw83[i]] for i, p in enumerate(enc83)),
+            "mesh encode: data pieces differ from the blocks")
+    for i in (0, 131, 255):
+        require(np.array_equal(par83[i], gf.encode_blocks_ref(raw83[i], K, M)),
+                f"mesh encode: block {i} parity differs from the oracle")
+    # EC(16,4): encode against the single-device path, repair against the original shards
+    par164 = np.stack([np.frombuffer(b"".join(p[k2:]), dtype=np.uint8).reshape(m2, -1)
+                       for p in pieces164])
+    mism += int((par164 != EcCuda(k2, m2, device=dev, n_devices=1).encode(raw164)).sum())
+    require(np.array_equal(par164[7], gf.encode_blocks_ref(raw164[7], k2, m2)),
+            "mesh EC(16,4) encode: block 7 parity differs from the oracle")
+    full164 = np.concatenate([raw164, par164], axis=1)
+    got164 = np.stack([np.stack([np.frombuffer(r[w], dtype=np.uint8) for w in LOST164])
+                       for r in rebuilt])
+    mism += int((got164 != full164[:, LOST164]).sum())
+    # sharded_apply: against the single-device step and a host fold
+    fwd = pipe.encode_and_hash_fn()
+    for b, (parity, hashes, stats) in scrubbed.items():
+        want = [t.cpu().numpy() for t in fwd(torch.from_numpy(scrub_data[b]).to(dev))]
+        mism += int((parity != want[0]).sum()) + int((hashes != want[1]).sum())
+        require(np.array_equal(stats, want[2]), f"sharded_apply {b}: stats {stats} != {want[2]}")
+        require(int(stats[0]) == b and int(stats[1]) == host_fold(hashes),
+                f"sharded_apply {b}: stats differ from the host count and fold")
+    require(mism == 0, f"mesh phase: {mism} bytes differ from the single-device path")
+    print(f"mesh checks: EC(8,3) 256-block encode, EC(16,4) 259-block encode and repair of "
+          f"ranks {LOST164}, sharded_apply at 11 and 259 blocks, dryrun_multichip({MESH_N}): "
+          f"all exact")
+    return {"launches": launches, "mismatches": mism, "raw83": raw83, "blocks83": blocks83,
+            "batches164": batches, "pipe": pipe, "x259": scrub_data[259]}
+
+
+def event_s(fn) -> float:
+    """Seconds between CUDA events on the current stream around fn(),
+    which ends in a device->host copy."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def time_mesh(dev, mesh, run: dict) -> dict:
+    """Wall and kernel time of the 4-entry and the 1-entry runs of the
+    same work, in turns (4, 1, 1, 4); then the fan-out of K1 at the
+    256-block EC(8,3) encode on device-resident slices, against one
+    launch over the whole batch and against the plain version."""
+    k2, m2 = 16, 4
+    codecs = {
+        "encode 256 x 1 MiB EC(8,3)": ("ec_encode", "encode_batch", run["blocks83"],
+                                       EcCodec(K, M, device=dev, mesh=mesh),
+                                       EcCodec(K, M, device=dev, n_devices=1)),
+        "repair 259 x 1 MiB EC(16,4)": ("ec_reconstruct", "reconstruct_batch", run["batches164"],
+                                        EcCodec(k2, m2, device=dev, mesh=mesh),
+                                        EcCodec(k2, m2, device=dev, n_devices=1)),
+    }
+    for label, (kernel, method, arg, fan_codec, one_codec) in codecs.items():
+        res = {"mesh": [], "single": []}
+        for name, codec in (("mesh", fan_codec), ("single", one_codec),
+                            ("single", one_codec), ("mesh", fan_codec)):
+            k0, t0 = compute_s(kernel), time.perf_counter()
+            getattr(codec, method)(arg)
+            res[name].append((time.perf_counter() - t0, compute_s(kernel) - k0))
+        print(f"mesh times {label}: " + "; ".join(
+            f"{name} wall_s={[round(w, 6) for w, _ in v]} kernel_s={[round(k, 6) for _, k in v]}"
+            for name, v in res.items()))
+    pipe, x259 = run["pipe"], run["x259"]
+    fwd = pipe.encode_and_hash_fn()
+    res = {"mesh": [], "single": []}
+    for name in ("mesh", "single", "single", "mesh"):
+        t0 = time.perf_counter()
+        if name == "mesh":
+            ks = event_s(lambda: pipe.sharded_apply(mesh, x259))
+        else:
+            ks = event_s(lambda: [t.cpu() for t in fwd(torch.from_numpy(x259).to(dev))])
+        res[name].append((time.perf_counter() - t0, ks))
+    print("mesh times sharded_apply 259 x EC(8,3) (kernel_s: events around the whole call, "
+          "copies included): " + "; ".join(
+              f"{name} wall_s={[round(w, 6) for w, _ in v]} kernel_s={[round(k, 6) for _, k in v]}"
+              for name, v in res.items()))
+
+    raw83 = run["raw83"]
+    s83 = raw83.shape[2]
+    x = torch.from_numpy(raw83).to(dev)
+    xparts = mesh.scatter(x, 256)
+    enc = gf.cauchy_parity_matrix(K, M)
+    bms = [coding_state_from_numpy(enc, d)["bitmat"] for d in mesh.devices]
+    outs = ec_apply_mesh(mesh, bms, xparts)
+    mesh.join(outs)
+    fan = torch.cat([o.to(dev) for o in outs])
+    plain = torch.cat([gf_bitmatmul(bms[0], x[i:i + 64]) for i in range(0, 256, 64)])
+    mism, err = diff(fan, plain)
+    require(mism == 0, f"K1 fan-out: {mism} bytes differ from gf_bitmatmul")
+    def fan_out():
+        ec_apply_mesh(mesh, bms, xparts)
+        mesh.join()
+
+    fan_ms, fan_graph = time_ms(fan_out, 20), graph_ms(fan_out, 20)
+    one_ms = time_ms(lambda: gf_bitmatmul_cuda(bms[0], x), 20)
+    one_graph = graph_ms(lambda: gf_bitmatmul_cuda(bms[0], x), 20)
+    plain_ms = time_ms(lambda: [gf_bitmatmul(bms[0], x[i:i + 64]) for i in range(0, 256, 64)], 1)
+    bound_ms = (256 * K * s83 + 256 * M * s83) / HBM_BYTES_PER_S * 1e3
+    print(f"K6 fan-out of K1, EC(8,3) B=256 S={s83} over {MESH_N} entries: mismatches={mism} "
+          f"fanout_ms={fan_ms:.6f} fanout_graph_ms={fan_graph:.6f} one_launch_ms={one_ms:.6f} "
+          f"one_launch_graph_ms={one_graph:.6f} plain_ms={plain_ms:.6f} "
+          f"bound_ms={bound_ms:.6f} bound_share={bound_ms / fan_ms:.4f}")
+    return {"mismatches": mism, "max_abs_err": err, "ms": fan_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs "
@@ -395,6 +585,14 @@ def main() -> int:
     require(launches["gf"] > 0, "the slice never launched K1")
     require(launches["blake3"] > 0, "the slice never launched K2")
 
+    if count >= MESH_N:
+        mesh, layout = make_mesh(MESH_N), f"{MESH_N} cards"
+    else:
+        mesh, layout = make_mesh(devices=[dev] * MESH_N), f"{MESH_N} entries on {dev}, one stream each"
+    print(f"mesh phase: {mesh} ({layout})")
+    mesh_run = drive_mesh(dev, mesh)
+    fanout = time_mesh(dev, mesh, mesh_run)
+
     main_k1 = k1["ec83_encode"]
     main_k2 = k2[(64 * (K + M), 131072)]
     kernels = [
@@ -419,6 +617,17 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
             "ms": main_k2["ms"], "plain_ms": main_k2["plain_ms"],
             "bound_ms": main_k2["bound_ms"], "bound_by": main_k2["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "mesh_fanout", "route": "cuda (K1 per entry)",
+            "source": "garage_tpu_torch/ops/ec_cuda.py",
+            "replaces": "garage_tpu/ops/ec_tpu.py:228",
+            "launches": mesh_run["launches"]["gf"],
+            "mismatches": mesh_run["mismatches"] + fanout["mismatches"],
+            "max_abs_err": fanout["max_abs_err"],
+            "ms": fanout["ms"], "plain_ms": fanout["plain_ms"],
+            "bound_ms": fanout["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
         },
     ]

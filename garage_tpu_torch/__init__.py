@@ -20,8 +20,13 @@ found under the same name):
   block/codec_batch.py  CodecBatcher — coalesces concurrent encodes and
                         degraded-read decodes into one dispatch
   block/codec/          EcCodec — bytes <-> (B, k, S) shard batches
-  models/pipeline.py    ScrubRepairPipeline — encode + hash + scrub stats
-  ops/ec_cuda.py        EcCuda, the K1 wrapper and its plain version
+  models/pipeline.py    ScrubRepairPipeline — encode + hash + scrub stats,
+                        on one device or sharded over a mesh
+  ops/ec_cuda.py        EcCuda, the K1 wrapper and its plain version, and
+                        the fan-out of K1 over a mesh (K6)
+  parallel/mesh.py      Mesh — device entries, one stream each, over which
+                        large batches are split
+  graft_entry.py        entry() / dryrun_multichip(n)
   ops/hash_cuda.py      the K2 wrapper and its plain version
   ops/_build.py         nvcc build of csrc/ at first use, ctypes binding
   ops/gf.py, ops/blake3_ref.py  numpy / pure-Python oracles

@@ -10,7 +10,10 @@ one.  (The reference routes small batches to its native C host codec;
 this package has none, and the card is never bypassed.)  On a CPU codec
 the same code runs the plain PyTorch versions.  Reconstructions are
 grouped by erasure pattern, so thousands of blocks repair in a handful
-of dispatches.
+of dispatches.  `encode_batch`, `decode_batch` and `reconstruct_batch`
+fan large batches out over a mesh of devices (`n_devices` or `mesh`,
+passed to `EcCuda`; by default every visible card), as the reference's
+do; the fused `encode_batch_hashed` stays on one device.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from ...ops.ec_cuda import EcCuda
+from ...parallel.mesh import Mesh
 from ...utils.metrics import registry
 from .base import BlockCodec
 
@@ -34,11 +38,12 @@ def _count(op: str, path: str, blocks: int, nbytes: int) -> None:
 
 
 class EcCodec(BlockCodec):
-    def __init__(self, k: int, m: int, device="cuda"):
+    def __init__(self, k: int, m: int, device="cuda", n_devices: int | None = None,
+                 mesh: Mesh | None = None):
         self.k, self.m = k, m
         self.n_pieces = k + m
         self.min_pieces = k
-        self._ec = EcCuda(k, m, device=device)
+        self._ec = EcCuda(k, m, device=device, n_devices=n_devices, mesh=mesh)
         self.device = self._ec.device
         self._path = self.device.type
 

@@ -24,39 +24,29 @@ over bit-unpacked shards, batched over blocks.  Two versions compute it:
 The matrix is an argument: encode, decode and every repair erasure
 pattern share one kernel.  `EcCuda` is the batched host API the block
 codec layer calls; `encode_hash_tensor` is the fused foreground dispatch
-(coding kernel, then BLAKE3 of all k+m pieces, on one stream).
+(coding kernel, then BLAKE3 of all k+m pieces, on one stream);
+`ec_apply_mesh` is the fan-out of K1 over a mesh's entries (K6, the
+reference's `ec_apply_fn_mesh`), which `EcCuda` takes for large batches
+when its mesh is wider than one entry.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh, make_mesh, resolve_device
 from . import _build, gf, telemetry
-from .bucketing import bucket_batch, pad_to_bucket
+from .bucketing import bucket_batch, mesh_rows, pad_to_bucket
 from .hash_cuda import blake3_batch
 
 __all__ = [
     "resolve_device", "coding_state_from_numpy", "gf_bitmatmul",
-    "gf_bitmatmul_cuda", "encode_hash_tensor", "blake3_supported_len",
-    "EcCuda",
+    "gf_bitmatmul_cuda", "encode_hash_tensor", "ec_apply_mesh",
+    "blake3_supported_len", "EcCuda",
 ]
-
-def resolve_device(device) -> torch.device:
-    """The torch.device an entry point runs on.  A CUDA device on a
-    machine without CUDA raises: nothing quietly runs on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA device requested but torch.cuda.is_available() is "
-                "False; pass device='cpu' to run the plain versions"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def coding_state_from_numpy(parity_gf: np.ndarray, device) -> dict[str, torch.Tensor]:
@@ -161,6 +151,16 @@ def encode_hash_tensor(
     return shards, hashes
 
 
+def ec_apply_mesh(
+    mesh: Mesh, bitmats: list[torch.Tensor], parts: list[torch.Tensor]
+) -> list[torch.Tensor]:
+    """K6, the fan-out of K1 over a mesh (the reference's
+    `ec_apply_fn_mesh`): parts[i] (per, q, S) and bitmats[i] (8r, 8q) on
+    mesh.devices[i] -> the entries' (per, r, S) outputs.  Each entry's
+    launch runs under its own stream; the streams are not joined."""
+    return mesh.map(lambda _dev, bm, x: gf_bitmatmul_cuda(bm, x), bitmats, parts)
+
+
 def blake3_supported_len(s: int) -> bool:
     """Shard lengths the batched BLAKE3 kernel accepts (ops/hash_cuda.py):
     any multiple of 64 up to one chunk, or a power-of-two number of full
@@ -173,23 +173,48 @@ def blake3_supported_len(s: int) -> bool:
 
 
 class EcCuda:
-    """Batched EC(k, m) encode/reconstruct on one device.
+    """Batched EC(k, m) encode/reconstruct on one device, or fanned out
+    over a mesh.
 
     Host API takes/returns numpy uint8 arrays shaped (B, shards, S); the
     block codec layer (block/codec/ec.py) handles bytes <-> array
     marshalling and dispatch batching.  The batch axis is padded to its
     power-of-two bucket and the pad rows' outputs sliced off.  Each
     dispatch ends in the device->host copy of its result, which is the
-    synchronisation point."""
+    synchronisation point.
 
-    def __init__(self, k: int, m: int, device="cuda"):
+    Mesh fan-out (the reference's `EcTpu._apply_mesh`): `encode` and
+    `reconstruct` split a batch over the mesh's entries when the mesh
+    is wider than one (`_mesh_width`: `GARAGE_EC_MESH=0` gives 1, then
+    `n_devices` or an explicit `mesh` pins the width, else every visible
+    card for a CUDA codec and 1 for a CPU codec).  An auto-detected mesh
+    engages at a batch of at least 2n, a pinned one at n.  On a one-card
+    host the auto width is 1 and nothing fans out.  `encode_and_hash`
+    stays on one device, as in the reference.  Divergence: the
+    reference retries a failed mesh dispatch on one device
+    (`ec_tpu.py:385-394`); here it raises, so a broken fan-out is never
+    hidden behind a slower path."""
+
+    def __init__(self, k: int, m: int, device="cuda", n_devices: int | None = None,
+                 mesh: Mesh | None = None):
         self.k, self.m = k, m
         self.device = resolve_device(device)
         self.platform = telemetry.resolved_platform(self.device)
+        if mesh is not None:
+            if n_devices not in (None, mesh.size):
+                raise ValueError(f"n_devices={n_devices} but the mesh has {mesh.size} entries")
+            if mesh.devices[0].type != self.device.type:
+                raise ValueError(f"a {self.device.type} codec cannot fan out over {mesh}")
+            n_devices = mesh.size
+        self._n_dev = n_devices
+        self._meshes: dict[int, Mesh] = {} if mesh is None else {mesh.size: mesh}
         self._enc_bitmat = coding_state_from_numpy(
             gf.cauchy_parity_matrix(k, m), self.device
         )["bitmat"]
         self._recon_cache: dict[tuple[tuple[int, ...], tuple[int, ...]], torch.Tensor] = {}
+        # copies of the coding matrices on the other devices of a mesh,
+        # by (None for encode or the reconstruction key, device)
+        self._replicas: dict[tuple, torch.Tensor] = {}
 
     def _check(self, data: np.ndarray, what: str, exact: bool = True) -> None:
         ok = data.ndim == 3 and (
@@ -201,28 +226,76 @@ class EcCuda:
                 f"{what}: expected (B, {want}, S) uint8, got {data.shape} {data.dtype}"
             )
 
-    def _apply(self, bitmat: torch.Tensor, x: np.ndarray, kernel: str) -> np.ndarray:
+    def _mesh_width(self) -> int:
+        if os.environ.get("GARAGE_EC_MESH", "1") == "0":
+            return 1
+        if self._n_dev is not None:
+            return self._n_dev
+        return torch.cuda.device_count() if self.device.type == "cuda" else 1
+
+    def _bitmat(self, key, dev: torch.device) -> torch.Tensor:
+        """The bit-matrix of coding matrix `key` (None: encode; else a
+        reconstruction key) on `dev`, copied from this codec's device once
+        per device."""
+        base = self._enc_bitmat if key is None else self._recon_cache[key]
+        if dev == base.device:
+            return base
+        copy = self._replicas.get((key, dev))
+        if copy is None:
+            copy = self._replicas[(key, dev)] = base.to(dev)
+        return copy
+
+    def _apply(self, key, x: np.ndarray, kernel: str) -> np.ndarray:
         b = x.shape[0]
-        bucket = bucket_batch(b)
+        n = self._mesh_width()
+        min_batch = 2 * n if self._n_dev is None else n
         with telemetry.dispatch(kernel, self.platform, b, x.nbytes) as rec:
+            if n > 1 and b >= min_batch:
+                out = self._apply_mesh(key, x, n, rec)
+                telemetry.mesh_engaged(kernel, self.platform, n)
+                return out
+            bucket = bucket_batch(b)
             rec.pad(b, bucket)
             with rec.transfer():
                 xd = pad_to_bucket(_host_tensor(x).to(self.device), bucket)
             with rec.compute():
-                out = gf_bitmatmul_cuda(bitmat, xd)
+                out = gf_bitmatmul_cuda(self._bitmat(key, self.device), xd)
             with rec.transfer():
                 return out[:b].cpu().numpy()
+
+    def _apply_mesh(self, key, x: np.ndarray, n: int,
+                    rec: telemetry.DispatchRecord) -> np.ndarray:
+        """Shard the block batch over the n-entry mesh: size it with
+        `mesh_rows`, split it into n equal slices, copy each slice's real
+        rows to its entry's device and zero-pad it there, launch K1 there
+        under the entry's stream, join the streams, gather to the host
+        and slice the pad rows off."""
+        mesh = self._meshes.get(n)
+        if mesh is None:
+            mesh = self._meshes[n] = make_mesh(n, device=self.device.type)
+        b = x.shape[0]
+        # placed on the current streams, which each entry's stream waits on
+        bitmats = [self._bitmat(key, dev) for dev in mesh.devices]
+        rows = mesh_rows(b, n)
+        rec.pad(b, rows)
+        with rec.transfer():
+            parts = mesh.scatter(_host_tensor(x), rows)
+        with rec.compute(mesh.streams):
+            outs = ec_apply_mesh(mesh, bitmats, parts)
+        with rec.transfer():
+            return mesh.gather(outs)[:b].numpy()
 
     def encode(self, data: np.ndarray) -> np.ndarray:
         """(B, k, S) data shards -> (B, m, S) parity shards."""
         self._check(data, "encode")
-        return self._apply(self._enc_bitmat, data, "ec_encode")
+        return self._apply(None, data, "ec_encode")
 
     def encode_and_hash(
         self, data: np.ndarray
     ) -> tuple[np.ndarray, np.ndarray | None]:
         """Foreground fused dispatch: (B, k, S) data shards ->
-        (parity (B, m, S), BLAKE3 hashes (B, k+m, 32) or None).
+        (parity (B, m, S), BLAKE3 hashes (B, k+m, 32) or None).  Always
+        on this codec's device.
 
         Hashes are None when the shard length is outside the batched
         BLAKE3 kernel's supported set — callers then hash host-side."""
@@ -250,9 +323,7 @@ class EcCuda:
         pattern; the pattern only changes the small matrix argument."""
         self._check(shards, "reconstruct", exact=False)
         key = (tuple(present[: self.k]), tuple(want))
-        bitmat = self._recon_cache.get(key)
-        if bitmat is None:
+        if key not in self._recon_cache:
             rmat = gf.reconstruction_matrix(self.k, self.m, list(key[0]), list(want))
-            bitmat = coding_state_from_numpy(rmat, self.device)["bitmat"]
-            self._recon_cache[key] = bitmat
-        return self._apply(bitmat, shards[:, : self.k, :], "ec_reconstruct")
+            self._recon_cache[key] = coding_state_from_numpy(rmat, self.device)["bitmat"]
+        return self._apply(key, shards[:, : self.k, :], "ec_reconstruct")

@@ -21,6 +21,9 @@ dashboard reads either package:
   tpu_codec_overlap_efficiency{kernel}           EWMA of wall / (transfer
                                                  + compute)
   tpu_compile_duration{cache}                    kernel build seconds (H)
+  tpu_mesh_engaged_total{kernel,platform,devices}  dispatches served by
+                                                 the multi-entry mesh
+                                                 fan-out
 
 The platform label is the tensor's device type, "cuda" or "cpu".
 """
@@ -80,6 +83,15 @@ def note_platform(platform: str) -> None:
     )
 
 
+def mesh_engaged(kernel: str, platform: str, devices: int) -> None:
+    """Count one dispatch that ran on the mesh fan-out, recorded after
+    the fan-out returned (EcCuda._apply)."""
+    registry.incr(
+        "tpu_mesh_engaged_total",
+        (("kernel", kernel), ("platform", platform), ("devices", str(devices))),
+    )
+
+
 def compile_event(cache: str, secs: float) -> None:
     """Record one build event (wall seconds) for a cache/kernel family;
     ops/_build.py reports each nvcc build here."""
@@ -107,7 +119,9 @@ class DispatchRecord:
 
     On the card, `compute()` records a pair of CUDA events on the current
     stream and never synchronises; the events are read at exit, after the
-    device->host copy that ends every dispatch has synchronised."""
+    device->host copy that ends every dispatch has synchronised.  Work
+    launched on side streams (a mesh's entries) is brought inside the
+    bracket by passing those streams to `compute()`."""
 
     __slots__ = ("kernel", "platform", "requested", "padded",
                  "transfer_secs", "compute_secs", "_events")
@@ -149,8 +163,11 @@ class DispatchRecord:
         )
 
     @contextmanager
-    def compute(self):
-        """Bracket the kernel launches."""
+    def compute(self, streams=()):
+        """Bracket the kernel launches.  `streams` are the side streams
+        they run on besides the current one (None entries are skipped):
+        each waits on the start event, and the current stream waits on
+        each before the end event, so the bracket spans their work."""
         if is_host_platform(self.platform):
             t0 = time.perf_counter()
             try:
@@ -158,12 +175,18 @@ class DispatchRecord:
             finally:
                 self._observe_compute(time.perf_counter() - t0)
             return
+        side = [s for s in streams if s is not None]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        for s in side:
+            s.wait_event(start)
         try:
             yield
         finally:
+            current = torch.cuda.current_stream()
+            for s in side:
+                current.wait_stream(s)
             end.record()
             self._events.append((start, end))
 

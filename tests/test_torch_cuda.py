@@ -12,12 +12,14 @@ import pytest
 import torch
 
 from garage_tpu_torch.block.codec.ec import EcCodec
+from garage_tpu_torch.models.pipeline import ScrubRepairPipeline
 from garage_tpu_torch.ops import gf
 from garage_tpu_torch.ops.blake3_ref import blake3
 from garage_tpu_torch.ops.ec_cuda import (
-    coding_state_from_numpy, encode_hash_tensor, gf_bitmatmul, gf_bitmatmul_cuda,
+    EcCuda, coding_state_from_numpy, encode_hash_tensor, gf_bitmatmul, gf_bitmatmul_cuda,
 )
 from garage_tpu_torch.ops.hash_cuda import blake3_batch, blake3_batch_ref
+from garage_tpu_torch.parallel.mesh import make_mesh
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)
@@ -109,3 +111,45 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         blake3_batch(flat[8:].view(3, 64))  # base not 16-byte aligned
     with pytest.raises(ValueError):
         blake3_batch(torch.zeros((1, 3 * 1024), dtype=torch.uint8, device=dev))
+
+
+def test_shared_card_mesh_matches_single_device(dev):
+    """A 4-entry mesh whose entries all name one card (one stream each):
+    encode, reconstruct and `sharded_apply` at uneven batches equal the
+    single-device path bit for bit."""
+    mesh = make_mesh(devices=[dev] * 4)
+    k, m, s = 8, 3, 4096
+    rng = np.random.default_rng(6)
+    data = rng.integers(0, 256, (9, k, s), dtype=np.uint8)
+    fan = EcCuda(k, m, device=dev, mesh=mesh)
+    one = EcCuda(k, m, device=dev, n_devices=1)
+    g0 = gf_bitmatmul_cuda.launches
+    parity = fan.encode(data)
+    assert gf_bitmatmul_cuda.launches == g0 + 4
+    assert np.array_equal(parity, one.encode(data))
+    assert np.array_equal(parity, gf.encode_blocks_ref(data, k, m))
+    full = np.concatenate([data, parity], axis=1)
+    lost = [0, 5, 9]
+    present = [i for i in range(k + m) if i not in lost]
+    rec = fan.reconstruct(full[:, present], present, lost)
+    assert np.array_equal(rec, full[:, lost])
+    assert np.array_equal(rec, one.reconstruct(full[:, present], present, lost))
+
+    pipe = ScrubRepairPipeline(k, m, s, device=dev)
+    for b in (4, 11):
+        x = rng.integers(0, 256, (b, k, s), dtype=np.uint8)
+        got = pipe.sharded_apply(mesh, x)
+        want = pipe.encode_and_hash_fn()(torch.from_numpy(x).to(dev))
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w.cpu().numpy())
+
+
+def test_auto_width_on_one_card_never_fans_out(dev, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    calls = []
+    monkeypatch.setattr(EcCuda, "_apply_mesh", lambda *a: calls.append(a))
+    ec = EcCuda(8, 3, device=dev)
+    assert ec._mesh_width() == 1
+    data = np.random.default_rng(7).integers(0, 256, (64, 8, 1024), dtype=np.uint8)
+    assert np.array_equal(ec.encode(data), gf.encode_blocks_ref(data, 8, 3))
+    assert calls == []

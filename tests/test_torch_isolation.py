@@ -23,7 +23,8 @@ PORT_FILES = sorted(
 CARD_PATH = [
     "garage_tpu_torch/ops/_build.py", "garage_tpu_torch/ops/ec_cuda.py",
     "garage_tpu_torch/ops/hash_cuda.py", "garage_tpu_torch/block/codec/ec.py",
-    "garage_tpu_torch/models/pipeline.py",
+    "garage_tpu_torch/models/pipeline.py", "garage_tpu_torch/parallel/mesh.py",
+    "garage_tpu_torch/graft_entry.py",
 ]
 FORBIDDEN_TOP = ("jax", "jaxlib", "garage_tpu")
 
@@ -66,13 +67,17 @@ def test_card_path_has_no_fallback(rel):
 def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
+    from garage_tpu_torch import graft_entry
     from garage_tpu_torch.block.codec import get_codec
     from garage_tpu_torch.block.codec.ec import EcCodec
     from garage_tpu_torch.models.pipeline import ScrubRepairPipeline
     from garage_tpu_torch.ops.ec_cuda import EcCuda
+    from garage_tpu_torch.parallel.mesh import make_mesh
 
     for make in (lambda: EcCodec(8, 3), lambda: EcCuda(8, 3),
-                 lambda: ScrubRepairPipeline(), lambda: get_codec((8, 3))):
+                 lambda: ScrubRepairPipeline(), lambda: get_codec((8, 3)),
+                 lambda: EcCodec(8, 3, n_devices=4), lambda: make_mesh(devices=["cuda"] * 4),
+                 lambda: graft_entry.entry(), lambda: graft_entry.dryrun_multichip(4)):
         with pytest.raises(RuntimeError):
             make()
     # the CPU is taken only when asked for
