@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the two hand-written kernels from garage_tpu_torch/csrc with nvcc,
-holds each against its plain PyTorch version on the card at the shapes
-the main path gives it (tolerance 0: integer math), then drives the
-erasure-coded data plane through the entry points a storage node calls,
-at EC(8,3) with 1 MiB blocks:
+Builds the two hand-written kernels from garage_tpu_torch/csrc with nvcc
+(and the host BLAKE3 library with g++), holds each against its plain
+PyTorch version on the card at the shapes the main path gives it
+(tolerance 0: integer math), then drives the erasure-coded data plane
+and the block store through the entry points a storage node calls, at
+EC(8,3) with 1 MiB blocks:
 
   1. device line: name, count, `nvidia-smi` name and power limit
   2. build: both kernels, build seconds, ptxas register/spill lines,
@@ -21,7 +22,10 @@ at EC(8,3) with 1 MiB blocks:
      replay of 50 launches (the card's time without the host), plain
      time, bound, GB/s
   4. K2 (BLAKE3) vs `blake3_batch_ref` on (64*11, 131072) rows and on
-     L in {64, 1024, 4096}; a few rows vs the pure-Python oracle
+     L in {64, 1024, 4096}; a few rows vs the pure-Python oracle; then
+     K3 (`encode_hash_tensor`, B=64) and K5 (the pipeline's `fwd`,
+     B=256) vs the plain versions composed the same way, with their
+     bounds (K1's byte bound plus K2's operation bound)
   5. the slice, with every launch counter set to 0 just before it:
      256 concurrent 1 MiB PUTs through CodecBatcher(EcCodec) (pieces
      vs the numpy oracle, every piece hash vs the plain hasher on the
@@ -38,8 +42,20 @@ at EC(8,3) with 1 MiB blocks:
      runs are timed in turns, and the fan-out of K1 at the 256-block
      encode is timed (eager and by CUDA-graph replay) against one launch
      and against the plain version
-  7. one JSON line listing each kernel: launches in phase 5 (in phase 6
-     for the fan-out), mismatches, times and bound
+  7. the block store, with the launch counters set to 0 just before
+     it: 11 nodes of this package in one process over loopback TCP
+     (tools/block_cluster.py), EC(8,3), each node's EcCodec on the card,
+     256 blocks of 1 MiB.  PUT from 32 clients (every stored header hash
+     vs the plain hasher), GET (bit-exact), degraded GET with 3 nodes
+     stopped (bit-exact, through the batcher's decode lane), repair of
+     a node restarted with its data dir wiped (`drive_bulk`; piece files
+     byte-identical), a `ScrubWorker` pass that finds exactly 3 flipped
+     bytes through K2, and resync; each part's wall time, K1/K2
+     launches and dispatch breakdown; then a cProfile of 64 more PUTs
+     and GETs
+  8. one JSON line listing each kernel: launches in phase 5 (in phase 6
+     for the fan-out; `launches_block_store` in phase 7), mismatches,
+     times and bound
 
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero without it, as does a machine without CUDA.
@@ -48,29 +64,42 @@ non-zero without it, as does a machine without CUDA.
 from __future__ import annotations
 
 import asyncio
+import cProfile
 import json
 import os
+import pstats
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from garage_tpu_torch import _native
 from garage_tpu_torch.block.codec.ec import EcCodec
 from garage_tpu_torch.block.codec_batch import CodecBatcher
+from garage_tpu_torch.block.repair import ScrubWorker
+from garage_tpu_torch.block.repair_plan import drive_bulk
 from garage_tpu_torch.graft_entry import dryrun_multichip
 from garage_tpu_torch.models.pipeline import ScrubRepairPipeline, scrub_stats
 from garage_tpu_torch.ops import _build, gf
 from garage_tpu_torch.ops.blake3_ref import blake3
 from garage_tpu_torch.ops.ec_cuda import (
-    EcCuda, coding_state_from_numpy, ec_apply_mesh, gf_bitmatmul, gf_bitmatmul_cuda,
+    EcCuda, coding_state_from_numpy, ec_apply_mesh, encode_hash_tensor, gf_bitmatmul,
+    gf_bitmatmul_cuda,
 )
 from garage_tpu_torch.ops.hash_cuda import blake3_batch, blake3_batch_ref
 from garage_tpu_torch.parallel.mesh import make_mesh
+from garage_tpu_torch.tools.block_cluster import (
+    make_cluster, restart_node, stop_all, stop_node, wait_until,
+)
 from garage_tpu_torch.tools.timing import graph_ms, time_ms
+from garage_tpu_torch.utils.background import WorkerState
+from garage_tpu_torch.utils.data import blake2sum
 from garage_tpu_torch.utils.metrics import registry
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, at the 700 W limit
@@ -82,6 +111,8 @@ BLAKE3_ALU_ONLY_OPS = 7 * 8 * 8 + 8
 BLAKE3_ADD_OPS = 7 * 8 * 4
 SEED = 0
 BLOCK = 1 << 20
+# phase 7's node directories live under the checkout's gitignored build/
+SCRATCH = Path(__file__).resolve().parent / "build"
 K, M = 8, 3
 
 
@@ -230,6 +261,42 @@ def check_k2(dev, gen, sm_count: int, clock_hz: float) -> dict:
               f"achieved_GBps={n * length / (kern_ms * 1e-3) / 1e9:.3f} "
               f"bound_share={bound_ms / kern_ms:.4f}")
         require(mism == 0, f"K2 L={length}: {mism} digest bytes differ from blake3_batch_ref")
+    return rows
+
+
+def time_composites(dev, gen, sm_count: int, clock_hz: float) -> dict:
+    """K3 (`encode_hash_tensor`: K1 then K2 on one stream) at a full
+    batcher dispatch, B=64, and K5 (the pipeline's `fwd`: K3 plus the
+    scrub statistics) at phase 5's scrub batch, B=256; EC(8,3), 1 MiB
+    blocks.  Each against the same composition of the plain versions
+    (K1's in 64-block chunks) and against its bound: K1's byte bound
+    plus K2's operation bound at the same shape."""
+    s = BLOCK // K
+    bm = coding_state_from_numpy(gf.cauchy_parity_matrix(K, M), dev)["bitmat"]
+    fwd = ScrubRepairPipeline(K, M, s, device=dev).encode_and_hash_fn()
+
+    def plain(x, stats: bool):
+        par = torch.cat([gf_bitmatmul(bm, x[i:i + 64]) for i in range(0, x.shape[0], 64)])
+        shards = torch.cat([x, par], dim=1)
+        h = blake3_batch_ref(shards.view(-1, s)).view(x.shape[0], K + M, 32)
+        return (par, h, scrub_stats(h)) if stats else (shards, h)
+
+    rows = {}
+    for name, b, kern, stats in (("K3", 64, lambda x: encode_hash_tensor(bm, x), False),
+                                 ("K5", 256, fwd, True)):
+        x = rand_u8((b, K, s), gen, dev)
+        got, want = kern(x), plain(x, stats)
+        torch.cuda.synchronize()
+        mism = sum(diff(g, w)[0] for g, w in zip(got, want))
+        require(mism == 0, f"{name}: {mism} elements differ from the plain versions")
+        ms = time_ms(lambda: kern(x), 20)
+        plain_ms = time_ms(lambda: plain(x, stats), 1)
+        k1_ms = (b * K * s + b * M * s + bm.numel()) / HBM_BYTES_PER_S * 1e3
+        k2_ms, k2_by = blake3_bound_ms(b * (K + M), s, sm_count, clock_hz)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": k1_ms + k2_ms}
+        print(f"{name} B={b} S={s}: mismatches={mism} ms={ms:.6f} plain_ms={plain_ms:.6f} "
+              f"bound_ms={k1_ms + k2_ms:.6f} (K1 bytes {k1_ms:.6f} + K2 {k2_by} {k2_ms:.6f}) "
+              f"bound_share={(k1_ms + k2_ms) / ms:.4f}")
     return rows
 
 
@@ -542,6 +609,260 @@ def time_mesh(dev, mesh, run: dict) -> dict:
             "bound_ms": bound_ms}
 
 
+# --- phase 7: the block store ----------------------------------------------------
+
+N_NODES = K + M  # one rank of every block on each node
+N_BLOCKS = 256  # one repair round (RepairWorker.EC_REPAIR_BATCH)
+N_CLIENTS = 32
+# With as many nodes as pieces, every block has the same rank order, so
+# each node holds one fixed rank; the parts pick their nodes by rank.
+STOPPED_RANKS = (0, 3, 9)  # the degraded GETs run without 2 data ranks and 1 parity
+READER_RANK = 5
+# the degraded GETs go through another node: the reader's read cache
+# holds the blocks it has just served
+DEGRADED_READER_RANK = 6
+BLOCK_STORE_TIMEOUT_S = 600  # a stuck part fails the phase instead of the call
+
+
+def breakdown_delta(before: dict, after: dict) -> dict:
+    """Per codec kernel, what the dispatch telemetry recorded between two
+    `dispatch_breakdown()` readings."""
+    out = {}
+    for kern, row in after.items():
+        prev = before.get(kern, {})
+        d = {k: v - prev.get(k, 0) for k, v in row.items()}
+        if d.get("dispatches"):
+            out[kern] = d
+    return out
+
+
+class Part:
+    """Wall time, K1/K2 launches and dispatch breakdown of one part of
+    phase 7, printed when the part ends."""
+
+    def __init__(self, name: str, results: dict):
+        self.name, self.results = name, results
+
+    def __enter__(self):
+        self.k1, self.k2 = gf_bitmatmul_cuda.launches, blake3_batch.launches
+        self.disp = dispatch_breakdown()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, *_):
+        if exc_type is not None:
+            return False
+        wall = time.perf_counter() - self.t0
+        row = {"wall_s": wall, "k1_launches": gf_bitmatmul_cuda.launches - self.k1,
+               "k2_launches": blake3_batch.launches - self.k2,
+               "dispatches": breakdown_delta(self.disp, dispatch_breakdown())}
+        self.results[self.name] = row
+        print(f"block store {self.name}: wall_s={wall:.6f} K1={row['k1_launches']} "
+              f"K2={row['k2_launches']} dispatch={json.dumps(row['dispatches'])}")
+        return False
+
+
+def piece_files(mgr, hashes) -> dict:
+    """{(hash, rank): file bytes} of every piece `mgr` holds."""
+    return {(h, r): open(path, "rb").read()
+            for h in hashes for r, (path, _c) in mgr.local_pieces(h).items()}
+
+
+async def all_pieces_stored(nodes, hashes) -> None:
+    """Wait until every node holds its own rank of every block."""
+    pending = {(x.index, h) for x in nodes for h in hashes}
+
+    def check() -> bool:
+        pending.difference_update({
+            (i, h) for i, h in list(pending)
+            if nodes[i].manager.find_block_file(h, piece=nodes[i].manager.ec_ranks_of(h)[0])})
+        return not pending
+
+    await wait_until(check, 60, "every node holds its rank of every block")
+
+
+def reference(mgr, hashes) -> None:
+    """Reference the blocks in `mgr`'s rc, as the block_ref table would:
+    repair and resync act only on referenced blocks."""
+    mgr.db.transaction(lambda tx: [mgr.rc.incr(tx, h) for h in hashes] and None)
+
+
+async def gather_limited(n: int, items, fn):
+    """fn(item) for every item, at most `n` in flight (n clients)."""
+    it = iter(enumerate(items))
+    out = [None] * len(items)
+
+    async def client():
+        for i, item in it:
+            out[i] = await fn(item)
+
+    await asyncio.gather(*[client() for _ in range(n)])
+    return out
+
+
+async def drive_block_store(dev, root) -> dict:
+    """Phase 7's main path on an 11-node EC(8,3) cluster of this package's
+    nodes; the launch counters are set to 0 by the caller just before."""
+    rng = np.random.default_rng(SEED + 7)
+    raw = rng.integers(0, 256, (N_BLOCKS, BLOCK), dtype=np.uint8)
+    blocks = [raw[i].tobytes() for i in range(N_BLOCKS)]
+    hashes = [blake2sum(b) for b in blocks]
+    s = EcCodec(K, M, device="cpu").piece_len(BLOCK)
+    res: dict = {}
+    keys = [rng.bytes(32) for _ in range(N_NODES)]  # node ids from the seed
+    nodes = await make_cluster(root, N_NODES, lambda i: EcCodec(K, M, device=dev), keys=keys)
+    down: set[int] = set()
+    try:
+        layout = nodes[0].system.layout_manager.history.current()
+        order = layout.nodes_of(hashes[0])
+        require(all(layout.nodes_of(h) == order for h in hashes),
+                "the blocks do not share one rank order")
+        index_of = {x.app.id: x.index for x in nodes}
+        by_rank = [index_of[n] for n in order]
+        stopped = [by_rank[r] for r in STOPPED_RANKS]
+        reader, degraded_reader = by_rank[READER_RANK], by_rank[DEGRADED_READER_RANK]
+        print(f"block store: node index by rank {by_rank}")
+        with Part("put", res):  # until every PUT is acknowledged (its piece quorum)
+            await gather_limited(N_CLIENTS, list(zip(hashes, blocks)),
+                                 lambda hb: nodes[0].manager.rpc_put_block(*hb))
+        with Part("put_settle", res):  # until the last background piece send lands
+            await all_pieces_stored(nodes, hashes)
+        for x in nodes:
+            reference(x.manager, hashes)
+        files = [piece_files(x.manager, hashes) for x in nodes]
+        for x, node_files in zip(nodes, files):
+            require(sorted(node_files) == sorted((h, x.manager.ec_ranks_of(h)[0]) for h in hashes),
+                    f"PUT: node {x.index} does not hold exactly its rank of every block")
+        heads, pieces = [], []
+        for node_files in files:
+            for stored in node_files.values():
+                heads.append(stored[12:44])
+                pieces.append(stored[44:])
+        require(all(len(p) == s for p in pieces), "PUT: a piece has the wrong length")
+        want = blake3_batch_ref(torch.from_numpy(
+            np.frombuffer(b"".join(pieces), dtype=np.uint8).copy()).to(dev).view(-1, s))
+        bad = int((want.cpu().numpy() != np.frombuffer(b"".join(heads), dtype=np.uint8)
+                   .reshape(-1, 32)).any(axis=1).sum())
+        require(bad == 0, f"PUT: {bad} stored header hashes differ from blake3_batch_ref")
+        print(f"block store put: {N_BLOCKS} blocks x {BLOCK} B from {N_CLIENTS} clients on "
+              f"node 0; {len(pieces)} piece files on {N_NODES} nodes, every header hash "
+              f"equals the plain hasher's")
+
+        with Part("get", res):
+            got = await gather_limited(N_CLIENTS, hashes, nodes[reader].manager.rpc_get_block)
+        bad = [i for i in range(N_BLOCKS) if got[i] != blocks[i]]
+        require(not bad, f"GET: blocks {bad[:8]} differ from what was PUT")
+        print(f"block store get: {N_BLOCKS} blocks through node {reader} (rank {READER_RANK}), "
+              f"all exact")
+
+        for i in stopped:
+            await stop_node(nodes[i])
+            down.add(i)
+        with Part("degraded_get", res):
+            got = await gather_limited(N_CLIENTS, hashes,
+                                       nodes[degraded_reader].manager.rpc_get_block)
+        bad = [i for i in range(N_BLOCKS) if got[i] != blocks[i]]
+        require(not bad, f"degraded GET: blocks {bad[:8]} differ from what was PUT")
+        decoded = res["degraded_get"]["dispatches"].get("ec_reconstruct", {})
+        require(decoded.get("dispatches", 0) > 0, "degraded GET: no decode dispatch ran")
+        if dev.type == "cuda":
+            require(res["degraded_get"]["k1_launches"] > 0, "degraded GET never launched K1")
+        print(f"block store degraded get: ranks {list(STOPPED_RANKS)} stopped, {N_BLOCKS} blocks "
+              f"through node {degraded_reader} in {decoded['dispatches']} decode dispatches, "
+              f"all exact")
+
+        # the other stopped nodes come back with their disks; the first
+        # comes back with its data dir wiped (a replaced drive)
+        up = [x for i, x in enumerate(nodes) if i not in down]
+        for i in (*stopped[1:], stopped[0]):
+            if i == stopped[0]:
+                shutil.rmtree(nodes[i].data_dir)
+            nodes[i] = await restart_node(root, nodes[i], up, EcCodec(K, M, device=dev))
+            down.discard(i)
+            up.append(nodes[i])
+            reference(nodes[i].manager, hashes)
+        mgr = nodes[stopped[0]].manager
+        with Part("repair", res):
+            rebuilt = await drive_bulk(mgr, hashes)
+        require(rebuilt == N_BLOCKS, f"repair: rebuilt {rebuilt} of {N_BLOCKS} pieces")
+        if dev.type == "cuda":
+            require(res["repair"]["k1_launches"] > 0, "repair never launched K1")
+        after = piece_files(mgr, hashes)
+        require(after == files[stopped[0]],
+                "repair: rebuilt piece files differ from the files before the wipe")
+        print(f"block store repair: ranks {list(STOPPED_RANKS[1:])} restarted, rank "
+              f"{STOPPED_RANKS[0]} restarted with its data dir wiped, {rebuilt} pieces rebuilt by "
+              f"drive_bulk, byte-identical to the lost files")
+
+        scrubbed = nodes[reader].manager
+        before = files[reader]
+        flipped = []
+        for h in hashes[:3]:
+            ((_r, (path, _c)),) = scrubbed.local_pieces(h).items()
+            data = bytearray(open(path, "rb").read())
+            data[44 + 1000] ^= 0x5A
+            open(path, "wb").write(bytes(data))
+            flipped.append(path)
+        worker = ScrubWorker(scrubbed)
+        worker.state.tranquility = 0
+        with Part("scrub", res):
+            while True:
+                state = await worker.work()
+                if state[0] == WorkerState.THROTTLED and state[1] >= 3600:
+                    break  # the pass is complete
+        require(worker.state.corruptions == 3,
+                f"scrub: {worker.state.corruptions} corruptions found, want 3")
+        require(all(os.path.exists(p + ".corrupted") and not os.path.exists(p)
+                    for p in flipped), "scrub: the 3 corrupted files were not quarantined")
+        if dev.type == "cuda":
+            require(res["scrub"]["k2_launches"] > 0, "scrub never launched K2")
+        with Part("resync", res):
+            while await scrubbed.resync.resync_iter():
+                pass
+        require(piece_files(scrubbed, hashes) == before,
+                "resync: the scrubbed node's piece files differ from the PUT's")
+        print(f"block store scrub: 3 flipped bytes on node {reader}, 3 corruptions "
+              f"found and quarantined, resync restored the exact files")
+        await profile_host(nodes, rng, by_rank[7])
+    finally:
+        await stop_all([x for i, x in enumerate(nodes) if i not in down])
+    return res
+
+
+async def profile_host(nodes, rng, getter: int) -> None:
+    """Where the host's time goes: 64 more PUTs from 32 clients on node 0
+    and their GETs through node `getter`, under cProfile (on Python 3.12
+    it also sees the worker threads of the codec dispatches and file
+    I/O).  Outside the timed parts; its launches count with the phase."""
+    more = [rng.integers(0, 256, BLOCK, dtype=np.uint8).tobytes() for _ in range(64)]
+    pairs = [(blake2sum(b), b) for b in more]
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    await gather_limited(N_CLIENTS, pairs, lambda hb: nodes[0].manager.rpc_put_block(*hb))
+    got = await gather_limited(N_CLIENTS, [h for h, _b in pairs],
+                               nodes[getter].manager.rpc_get_block)
+    prof.disable()
+    wall = time.perf_counter() - t0
+    require(got == more, "profiled GET: blocks differ from what was PUT")
+    stats = pstats.Stats(prof)
+    total = stats.total_tt
+    print(f"block store host profile (64 PUTs + 64 GETs, wall_s={wall:.6f}, "
+          f"profiled_s={total:.6f}), top functions by own time:")
+    rows = sorted(stats.stats.items(), key=lambda kv: kv[1][2], reverse=True)[:15]
+    for (path, line, fn), (_cc, ncalls, tt, ct, _callers) in rows:
+        print(f"  {tt:.6f}s own {ct:.6f}s cum {ncalls} calls "
+              f"{'/'.join(Path(path).parts[-2:])}:{line} {fn}")
+
+
+def run_block_store(dev) -> dict:
+    root = Path(tempfile.mkdtemp(prefix="block-store-", dir=SCRATCH))
+    try:
+        return asyncio.run(asyncio.wait_for(drive_block_store(dev, root), BLOCK_STORE_TIMEOUT_S))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs "
@@ -564,6 +885,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {src}: {line.strip()}")
+    t0 = time.perf_counter()
+    lib = _native.build()
+    print(f"build: host BLAKE3 {lib.name} wall_s={time.perf_counter() - t0:.3f}")
     ops = sass_int_ops(_build._target("blake3"), "blake3_small_kernel")
     print(f"sass blake3_small_kernel (one compression in its loop): "
           f"{ops if ops is None else json.dumps(ops)} "
@@ -577,6 +901,7 @@ def main() -> int:
     gen.manual_seed(SEED)
     k1 = check_k1(dev, gen)
     k2 = check_k2(dev, gen, sm_count, clock_mhz * 1e6)
+    time_composites(dev, gen, sm_count, clock_mhz * 1e6)
 
     gf_bitmatmul_cuda.launches = 0
     blake3_batch.launches = 0
@@ -593,6 +918,18 @@ def main() -> int:
     mesh_run = drive_mesh(dev, mesh)
     fanout = time_mesh(dev, mesh, mesh_run)
 
+    SCRATCH.mkdir(exist_ok=True)
+    gf_bitmatmul_cuda.launches = 0
+    blake3_batch.launches = 0
+    store = run_block_store(dev)
+    store_launches = {"gf": gf_bitmatmul_cuda.launches, "blake3": blake3_batch.launches}
+    require(store_launches["gf"] > 0, "the block store never launched K1")
+    require(store_launches["blake3"] > 0, "the block store never launched K2")
+    print(f"block store: {N_NODES} nodes EC({K},{M}), {N_BLOCKS} blocks x {BLOCK} B, "
+          f"launches K1 {store_launches['gf']} K2 {store_launches['blake3']}; "
+          f"wall_s {json.dumps({k: round(v['wall_s'], 6) for k, v in store.items()})} "
+          f"on {card}")
+
     main_k1 = k1["ec83_encode"]
     main_k2 = k2[(64 * (K + M), 131072)]
     kernels = [
@@ -601,6 +938,7 @@ def main() -> int:
             "source": "garage_tpu_torch/csrc/gf_bitplane.cu",
             "replaces": "garage_tpu/ops/ec_tpu.py:116",
             "launches": launches["gf"],
+            "launches_block_store": store_launches["gf"],
             "mismatches": sum(r["mismatches"] for r in k1.values()),
             "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
             "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
@@ -612,6 +950,7 @@ def main() -> int:
             "source": "garage_tpu_torch/csrc/blake3.cu",
             "replaces": "garage_tpu/ops/hash_tpu.py:93",
             "launches": launches["blake3"],
+            "launches_block_store": store_launches["blake3"],
             "mismatches": sum(r["mismatches"] for r in k2.values())
             + slice_res["hash_mismatches"],
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),

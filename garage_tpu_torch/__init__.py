@@ -1,5 +1,6 @@
-"""garage_tpu_torch — the erasure-coded data plane of garage-tpu on PyTorch
-and CUDA (NVIDIA Hopper, sm_90a).
+"""garage_tpu_torch — garage-tpu's erasure-coded data plane, and the block
+store and cluster plane around it, on PyTorch and CUDA (NVIDIA Hopper,
+sm_90a).
 
 The `ec:k:m` block mode splits each block into k data shards, computes m
 GF(2^8) Cauchy parity shards, and BLAKE3-hashes every one of the k+m
@@ -17,6 +18,14 @@ kernels are held to.
 
 Layer map (module paths mirror `garage_tpu/`, so each counterpart is
 found under the same name):
+  block/manager.py      BlockManager — piece placement, quorum PUT, the EC
+                        read pipeline, bulk repair; block/resync.py,
+                        block/repair.py (scrub: piece hashes through K2),
+                        block/repair_plan.py (the batched repair planner)
+  rpc/, net/, db/       cluster layout, peering, quorum RPC; the encrypted
+                        TCP mesh (the reference's wire protocol); the
+                        metadata db (memory, sqlite)
+  _native/              host BLAKE3 in C++ (single pieces), built by g++
   block/codec_batch.py  CodecBatcher — coalesces concurrent encodes and
                         degraded-read decodes into one dispatch
   block/codec/          EcCodec — bytes <-> (B, k, S) shard batches
@@ -30,9 +39,10 @@ found under the same name):
   ops/hash_cuda.py      the K2 wrapper and its plain version
   ops/_build.py         nvcc build of csrc/ at first use, ctypes binding
   ops/gf.py, ops/blake3_ref.py  numpy / pure-Python oracles
-  utils/                the small host helpers the layers above call
+  utils/                serde, CRDTs, config, workers, tracing, metrics
   tools/                kernel timing on the card (CUDA events, graph
-                        replay) and the K1 variant comparison
+                        replay), the K1 variant comparison, and an
+                        in-process cluster of block-store nodes
 
 Import rule: this package imports `torch` and `numpy` and never `jax`,
 and it imports nothing from `garage_tpu` — not even its JAX-free
@@ -45,3 +55,7 @@ asks for it (`device="cpu"`), and then through the plain versions.
 """
 
 __version__ = "0.1.0"
+
+# The zlib-backed `zstandard` stand-in (utils/depcompat.py) must be in
+# place before any submodule import pulls the real name.
+from .utils import depcompat as _depcompat  # noqa: E402,F401

@@ -1,0 +1,1536 @@
+"""BlockManager: local block files + replication RPCs.
+
+Reference src/block/manager.rs.  Blocks are stored as files named by their
+hash under `<dir>/<hh>/<hh>/`, zstd-compressed when beneficial
+(`<hash>.zst`), plain otherwise.  Writes verify the hash, optionally
+fsync, and are serialized by a 256-way mutex shard.  Reads verify before
+returning.  Remote ops on endpoint `block/data`:
+
+  ["Put", hash, {"c": compressed}]  + data in body   store one block/piece
+  ["Get", hash]                     -> {"c":..}, data   read stored form
+  ["Need", hash]                    -> bool   does this node still need it?
+
+Block payloads ride ATTACHED BYTE STREAMS (reference src/net/stream.rs +
+manager.rs:366 rpc_put_block streaming): the body carries only the small
+msgpack header, the payload flows as stream chunks through the frame
+scheduler's priority QoS, and the serving side reads files in chunks
+instead of one big buffer.  Aggregate payload RAM is bounded by a
+`block_ram_buffer_max` byte-budget semaphore (reference manager.rs:96) —
+a resync burst queues behind the budget instead of ballooning RSS.
+
+With an erasure codec (`replication_mode = ec:k:m`), each node in the
+block's assignment stores the piece whose index equals the node's rank in
+the assignment; `rpc_get_block` then gathers `k` pieces and decodes
+(codec-driven, see codec/ec.py).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+import time
+from typing import Any
+
+import zstandard
+
+from .. import _native
+from ..db import Db
+from ..net.message import PRIO_BACKGROUND, PRIO_NORMAL, Req, Resp
+from ..rpc.layout.types import partition_of
+from ..rpc.rpc_helper import RpcHelper
+from ..rpc.system import System
+from ..utils.background import BackgroundRunner
+from ..utils.config import DataDir
+from ..utils.data import blake2sum
+from ..utils.error import Error, Quorum
+from ..utils.persister import Persister
+from .codec import BlockCodec, ReplicaCodec
+from .layout import DataLayout
+from .rc import BlockRc
+
+logger = logging.getLogger("garage.block")
+
+INLINE_THRESHOLD = 3072  # smaller objects inline in the object table
+
+# EC piece files carry the original block length (to strip the codec's
+# stripe padding at decode time) and the BLAKE3 of the piece (per-piece
+# integrity for scrub — the block hash only covers the decoded plaintext):
+#   b"GTP2" + u64 block_len + 32B blake3(piece) + piece
+# (v1 "GTP1" files without the hash are still readable.)
+PIECE_MAGIC_V1 = b"GTP1"
+PIECE_MAGIC = b"GTP2"
+
+
+def _read_file_sync(path: str) -> bytes:
+    """Whole-file read — always call through asyncio.to_thread from
+    coroutines (loop blocking): a disk read on the event loop
+    stalls EVERY concurrent request on the node."""
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _file_stream(path: str, chunk: int = 256 * 1024):
+    """Async generator reading a block file in chunks (serving side of
+    streamed Get: no whole-file buffer).  Each read runs in a worker
+    thread so a slow/contended disk never blocks the event loop between
+    chunks."""
+
+    async def gen():
+        f = await asyncio.to_thread(open, path, "rb")
+        try:
+            while True:
+                b = await asyncio.to_thread(f.read, chunk)
+                if not b:
+                    return
+                yield b
+        finally:
+            # close in a thread too: after a cancelled read, close()
+            # blocks on the BufferedReader lock until the in-flight disk
+            # read finishes — on the loop that would be exactly the stall
+            # this function exists to avoid.  Shielded so a cancel
+            # delivered mid-close can't abandon the fd (cancel-safety).
+            await asyncio.shield(asyncio.to_thread(f.close))
+
+    return gen()
+
+
+async def _resp_payload(resp, budget=None) -> tuple[dict, bytes]:
+    """(meta, stored_bytes) from a Get response — streamed or legacy
+    inline.  With `budget`, RAM is reserved (from the declared size)
+    BEFORE the stream is buffered."""
+    body = resp.body
+    if len(body) > 2 and body[2] is not None:
+        return body[1], bytes(body[2])
+    from ..net.stream import read_stream_to_end
+
+    if budget is not None:
+        async with budget.reserve(int(body[1].get("s", 4 * 1024 * 1024))):
+            return body[1], await read_stream_to_end(resp.stream)
+    return body[1], await read_stream_to_end(resp.stream)
+
+
+def piece_hash(piece: bytes) -> bytes:
+    """Host BLAKE3 of one piece (the C++ library of `_native`, which
+    raises if it cannot be built: there is no slow fallback)."""
+    return _native.blake3(piece)
+
+
+def wrap_piece(block_len: int, piece: bytes, phash: bytes | None = None) -> bytes:
+    """Build the stored piece header.  `phash` is the sender-provided
+    BLAKE3 of the piece (computed inside the batched encode dispatch,
+    `block/codec_batch.py`): when present the receiving node skips its
+    own per-piece hash.  Trust is unchanged — the sender is already the
+    authority for the piece bytes themselves, and a wrong hash surfaces
+    at scrub exactly like a corrupted piece would (quarantine + resync
+    rebuild)."""
+    if phash is None or len(phash) != 32:
+        phash = piece_hash(piece)
+    return PIECE_MAGIC + block_len.to_bytes(8, "big") + phash + piece
+
+
+def unwrap_piece(stored: bytes, verify: bool = True) -> tuple[int, bytes]:
+    if stored[:4] == PIECE_MAGIC:
+        blen = int.from_bytes(stored[4:12], "big")
+        want = stored[12:44]
+        piece = stored[44:]
+        if verify and piece_hash(piece) != want:
+            raise Error("EC piece integrity hash mismatch")
+        return blen, piece
+    if stored[:4] == PIECE_MAGIC_V1:
+        return int.from_bytes(stored[4:12], "big"), stored[12:]
+    raise Error("not an EC piece file")
+
+
+def stored_piece_parts(stored: bytes) -> tuple[int, bytes, bytes] | None:
+    """(block_len, expected_hash, piece) for v2 files; None for v1."""
+    if stored[:4] != PIECE_MAGIC:
+        return None
+    return (
+        int.from_bytes(stored[4:12], "big"),
+        stored[12:44],
+        stored[44:],
+    )
+
+
+import contextvars
+
+# re-entrancy marker: a task that already holds a ByteBudget reservation
+# must not block on a nested one — the local-shortcut RPC path dispatches
+# the Put handler IN the caller's task, and caller + handler reserving
+# from the same budget would deadlock once the budget is contended
+_budget_held: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "block_budget_held", default=False
+)
+
+
+class ByteBudget:
+    """Async RAM budget: holders of block payload buffers `reserve(n)`
+    bytes; when the budget is exhausted new work waits instead of
+    allocating (reference manager.rs block_ram_buffer_max semaphore).
+    Re-entrant per task: a nested reserve inside a held one is free."""
+
+    def __init__(self, limit: int):
+        self.limit = max(1, limit)
+        self.used = 0
+        self._cond = asyncio.Condition()
+
+    def reserve(self, n: int):
+        from contextlib import asynccontextmanager
+
+        # one oversized item may exceed the budget alone (never deadlock)
+        n = min(n, self.limit)
+
+        @asynccontextmanager
+        async def ctx():
+            if _budget_held.get():
+                yield  # caller's reservation already covers this task
+                return
+            async with self._cond:
+                while self.used + n > self.limit:
+                    await self._cond.wait()
+                self.used += n
+            token = _budget_held.set(True)
+            try:
+                yield
+            finally:
+                _budget_held.reset(token)
+                async with self._cond:
+                    self.used -= n
+                    self._cond.notify_all()
+
+        return ctx()
+
+
+class BlockManager:
+    def __init__(
+        self,
+        system: System,
+        helper: RpcHelper,
+        db: Db,
+        data_dirs: list[DataDir],
+        metadata_dir: str,
+        compression_level: int | None = 1,
+        codec: BlockCodec | None = None,
+        data_fsync: bool = False,
+        ram_buffer_max: int = 256 * 1024 * 1024,
+        disable_scrub: bool = False,
+        block_config=None,
+    ):
+        from ..utils.config import BlockConfig
+
+        self.system = system
+        self.helper = helper
+        self.db = db
+        self.metadata_dir = metadata_dir
+        self.codec = codec or ReplicaCodec()
+        self.compression_level = compression_level
+        self.data_fsync = data_fsync
+        self.disable_scrub = disable_scrub
+        self.buffers = ByteBudget(ram_buffer_max)
+        self.rc = BlockRc(db)
+        # foreground codec batcher ([block] knobs, utils/config.py):
+        # coalesces concurrent PUT encodes into one dispatch.  EC only —
+        # the replica codec has no encode step to batch.
+        self.block_config = block_config or BlockConfig()
+        self.batcher = None
+        if (
+            self.codec.n_pieces > 1
+            and self.block_config.batch_enabled
+            and hasattr(self.codec, "encode_batch_hashed")
+        ):
+            from .codec_batch import CodecBatcher
+
+            self.batcher = CodecBatcher(
+                self.codec,
+                linger_msec=self.block_config.batch_linger_msec,
+                max_blocks=self.block_config.batch_max_blocks,
+                max_bytes=self.block_config.batch_max_bytes,
+            )  # `[block] batch_impl` is parsed but not used: one path per device
+        # hot-block read cache: per-NODE on purpose — a
+        # process-wide singleton would let in-process test-cluster node A
+        # "read" a block it never fetched
+        from .read_cache import BlockCache
+
+        self.read_cache = BlockCache(self.block_config.read_cache_bytes)
+        # seedable disk-fault seam (net/fault.py FaultPlan): when set,
+        # local block reads/writes may fail per the plan's probabilities
+        self.fault_plan = None
+
+        self._layout_persister: Persister[DataLayout] = Persister(
+            metadata_dir, "data_layout", DataLayout
+        )
+        existing = self._layout_persister.load()
+        if existing is None:
+            self.data_layout = DataLayout.initial(data_dirs)
+        else:
+            existing.check_markers()
+            self.data_layout = existing.update(data_dirs)
+        self.data_layout.ensure_markers()
+        self._layout_persister.save(self.data_layout)
+
+        self._locks = [asyncio.Lock() for _ in range(256)]
+        self.endpoint = system.netapp.endpoint("block/data")
+        self.endpoint.set_handler(self._handle)
+
+        from .resync import BlockResyncManager
+
+        self.resync = BlockResyncManager(self)
+
+    def spawn_workers(self, bg: BackgroundRunner) -> None:
+        from .repair import ScrubWorker
+
+        self.resync.spawn_workers(bg)
+        # kept as an attribute so the admin scrub controls (pause/resume/
+        # cancel/tranquility) can reach the running worker
+        self.scrub_worker = None
+        if not self.disable_scrub:  # config.rs disable_scrub / manager.rs:202
+            self.scrub_worker = ScrubWorker(self, metadata_dir=self.metadata_dir)
+            bg.spawn(self.scrub_worker)
+
+    # --- placement -----------------------------------------------------------
+
+    def storage_nodes_of(self, hash32: bytes) -> list[bytes]:
+        layout = self.system.layout_manager.history
+        nodes: list[bytes] = []
+        for s in layout.write_sets_of(hash32):
+            for n in s:
+                if n not in nodes:
+                    nodes.append(n)
+        return nodes
+
+    def read_nodes_of(self, hash32: bytes) -> list[bytes]:
+        return self.system.layout_manager.history.read_nodes_of(hash32)
+
+    # --- local file store -----------------------------------------------------
+
+    def _file_name(self, hash32: bytes, piece: int, compressed: bool) -> str:
+        # EC pieces carry their index in the name ("<hash>.p<i>"): node
+        # rank changes across layout versions, so piece identity must live
+        # with the file, not be inferred from placement
+        name = hash32.hex()
+        if piece != 0 or self.codec.n_pieces > 1:
+            name += f".p{piece}"
+        return name + (".zst" if compressed else "")
+
+    def find_block_file(self, hash32: bytes, piece: int = 0) -> tuple[str, bool] | None:
+        for base in self.data_layout.all_dirs(hash32):
+            d = self.data_layout.block_dir(base, hash32)
+            for compressed in (True, False):
+                p = os.path.join(d, self._file_name(hash32, piece, compressed))
+                if os.path.exists(p):
+                    return (p, compressed)
+            if piece == 0 and self.codec.n_pieces > 1:
+                # legacy replica-format file (codec switched to EC)
+                p = os.path.join(d, hash32.hex())
+                for cand in (p + ".zst", p):
+                    if os.path.exists(cand):
+                        return (cand, cand.endswith(".zst"))
+        return None
+
+    def local_pieces(self, hash32: bytes) -> dict[int, tuple[str, bool]]:
+        """All locally stored pieces of a block (EC scrub/read path)."""
+        out: dict[int, tuple[str, bool]] = {}
+        for i in range(self.codec.n_pieces):
+            f = self.find_block_file(hash32, piece=i)
+            if f:
+                out[i] = f
+        return out
+
+    def has_block(self, hash32: bytes) -> bool:
+        return self.find_block_file(hash32) is not None
+
+    async def write_block_local(
+        self, hash32: bytes, stored: bytes, compressed: bool, piece: int = 0
+    ) -> None:
+        """Store already-encoded bytes (compressed or plain) for hash."""
+        if self.fault_plan is not None and self.fault_plan.should_fail_disk(
+            "write"
+        ):
+            from ..net.fault import InjectedDiskFault
+
+            raise InjectedDiskFault("injected block write fault")
+        async with self._locks[hash32[0]]:  # the per-prefix write lock intentionally spans the threaded write: shard serialization is the contract
+            existing = self.find_block_file(hash32, piece=piece)
+            if existing is not None:
+                ex_path, ex_comp = existing
+                if ex_comp or not compressed:
+                    return  # already have an equal-or-better copy
+            base = self.data_layout.primary_dir(hash32)
+            d = self.data_layout.block_dir(base, hash32)
+            path = os.path.join(d, self._file_name(hash32, piece, compressed))
+            # the mkdir/write/fsync/rename sequence runs in a worker
+            # thread: with data_fsync on, an fsync on the loop thread
+            # used to stall every concurrent request for the duration of
+            # a disk flush (the single biggest per-request event-loop
+            # blocker on the EC PUT path).  The per-prefix lock is held
+            # across the await, so write serialization per hash shard is
+            # unchanged.
+            await asyncio.to_thread(
+                self._write_block_file_sync, d, path, stored
+            )
+            if existing is not None and existing[0] != path:
+                try:
+                    await asyncio.to_thread(os.remove, existing[0])
+                except OSError:
+                    pass
+
+    def _write_block_file_sync(self, d: str, path: str, stored: bytes) -> None:
+        """Blocking half of write_block_local — runs via
+        asyncio.to_thread, never call from a coroutine directly."""
+        os.makedirs(d, exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(stored)
+            if self.data_fsync:
+                f.flush()
+                os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    async def read_block_local(self, hash32: bytes) -> bytes | None:
+        """Read + verify + decompress the locally stored piece/block."""
+        found = self.find_block_file(hash32)
+        if found is None:
+            return None
+        if self.fault_plan is not None and self.fault_plan.should_fail_disk(
+            "read"
+        ):
+            # an unreadable sector behaves like a local miss: the caller
+            # falls back to peers, resync re-examines the block
+            logger.warning(
+                "injected block read fault for %s", hash32.hex()[:16]
+            )
+            self.resync.queue_block(hash32)
+            return None
+        path, compressed = found
+        stored = await asyncio.to_thread(_read_file_sync, path)
+        try:
+            data = zstandard.decompress(stored) if compressed else stored
+        except zstandard.ZstdError as e:
+            logger.error("local block %s undecodable: %r", hash32.hex()[:16], e)
+            await self._quarantine(path)
+            self.resync.queue_block(hash32)
+            return None
+        if not self._verify(hash32, data):
+            logger.error("local block %s is corrupted", hash32.hex()[:16])
+            await self._quarantine(path)
+            self.resync.queue_block(hash32)
+            return None
+        return data
+
+    def _verify(self, hash32: bytes, piece: bytes) -> bool:
+        """For replication, the piece IS the block: hash must match.  For
+        EC, pieces are not the block; integrity uses stored piece hashes
+        (shard headers) — here we accept and rely on codec checks."""
+        if self.codec.n_pieces == 1:
+            return blake2sum(piece) == hash32
+        return True
+
+    async def _quarantine(self, path: str) -> None:
+        from ..utils.metrics import registry
+
+        registry.incr("block_corrupted_count")
+        try:
+            await asyncio.to_thread(os.replace, path, path + ".corrupted")
+        except OSError:
+            pass
+
+    def _maybe_compress(self, data: bytes) -> tuple[bytes, bool]:
+        if self.compression_level is None:
+            return data, False
+        comp = zstandard.compress(data, self.compression_level)
+        if len(comp) < len(data):
+            return comp, True
+        return data, False
+
+    # --- rpc handlers ---------------------------------------------------------
+
+    async def _handle(self, from_id: bytes, req: Req) -> Resp:
+        op = req.body
+        if op[0] == "Put":
+            hash32, meta = bytes(op[1]), op[2]
+            # reserve BEFORE buffering the payload (the sender declares the
+            # size in meta["s"]) — this is what actually bounds receiver RSS
+            async with self.buffers.reserve(int(meta.get("s", 4 * 1024 * 1024))):
+                if len(op) > 3 and op[3] is not None:
+                    payload = bytes(op[3])  # legacy inline-body form
+                else:
+                    from ..net.stream import read_stream_to_end
+
+                    payload = await read_stream_to_end(req.stream)
+                piece = int(meta.get("p", 0))
+                if self.codec.n_pieces == 1 and not bool(meta.get("c")):
+                    # replica mode stores the block itself: verify first
+                    # (hashing a whole block is CPU-bound — off the loop
+                    # above the same threshold the sender uses)
+                    if len(payload) >= self.block_config.cpu_offload_min_bytes:
+                        digest = await asyncio.to_thread(blake2sum, payload)
+                    else:
+                        digest = blake2sum(payload)
+                    if digest != hash32:
+                        raise Error("put payload does not match block hash")
+                if "l" in meta:  # fresh EC piece: wrap with its block length
+                    ph = meta.get("ph")
+                    payload = wrap_piece(
+                        int(meta["l"]), payload,
+                        phash=bytes(ph) if ph is not None else None,
+                    )
+                await self.write_block_local(
+                    hash32, payload, bool(meta.get("c")), piece=piece
+                )
+            return Resp(None)
+        if op[0] == "Get":
+            hash32 = bytes(op[1])
+            piece = int(op[2]) if len(op) > 2 and op[2] is not None else 0
+            found = self.find_block_file(hash32, piece=piece)
+            if found is None:
+                raise Error(f"block {hash32.hex()[:16]} piece {piece} not found")
+            path, compressed = found
+            # stream the file in chunks: the whole block never sits in one
+            # send buffer, and the QoS scheduler interleaves other traffic;
+            # "s" lets the receiver reserve RAM before buffering
+            size = os.path.getsize(path)
+            return Resp(
+                ["ok", {"c": compressed, "s": size}], stream=_file_stream(path)
+            )
+        if op[0] == "Need":
+            hash32 = bytes(op[1])
+            return Resp(self.rc.is_needed(hash32) and not self.has_block(hash32))
+        if op[0] == "Pieces":
+            hash32 = bytes(op[1])
+            return Resp(sorted(self.local_pieces(hash32).keys()))
+        if op[0] == "Inv":
+            # bulk piece inventory (repair-plane survey, block/repair_plan.py):
+            # one RPC answers for hundreds of hashes what "Pieces" answers
+            # for one — [[piece_indices], piece_payload_len] per hash
+            out = []
+            for h in op[1]:
+                h = bytes(h)
+                pieces = self.local_pieces(h)
+                plen = 0
+                for _pi, (path, compressed) in sorted(pieces.items()):
+                    if compressed:
+                        continue  # legacy .zst replica file: size lies
+                    from .repair_plan import _stored_piece_len
+
+                    plen = await asyncio.to_thread(_stored_piece_len, path)
+                    break
+                out.append([sorted(pieces.keys()), plen])
+            return Resp(out)
+        if op[0] == "Queue":
+            # bulk resync nudge: a remote planner found stripes whose
+            # missing ranks live HERE; this node's resync heals them
+            hashes = [bytes(h) for h in op[1]]
+            self.resync.queue_blocks(hashes)
+            return Resp(len(hashes))
+        raise Error(f"unknown block op {op[0]!r}")
+
+    async def close(self) -> None:
+        """Tear down foreground resources (Garage.stop): the codec
+        batcher's flusher tasks + queue-depth gauges and the read
+        cache's bytes gauge."""
+        if self.batcher is not None:
+            await self.batcher.close()
+        self.read_cache.close()
+
+    async def _encode_ec(
+        self, data: bytes
+    ) -> tuple[list[bytes], list[bytes] | None]:
+        """EC piece encode for the foreground write path: coalesced with
+        concurrent requests through the batcher when enabled (which also
+        yields the per-piece BLAKE3 hashes from the fused dispatch);
+        otherwise a single-block dispatch in a worker thread.  Either
+        way the codec math stays OFF the event loop — the pre-batcher
+        pipeline's real serialization point under concurrency."""
+        if self.batcher is not None:
+            return await self.batcher.encode(data)
+        from ..utils.latency import phase_span
+
+        with phase_span("encode"):
+            pieces = await asyncio.to_thread(self.codec.encode, data)
+        return pieces, None
+
+    # --- cluster ops ----------------------------------------------------------
+
+    async def rpc_put_block(self, hash32: bytes, data: bytes) -> None:
+        """Store a block on its replica set (quorum in every active layout
+        version).  With an EC codec, each node receives only its piece.
+        Payloads ride attached streams; aggregate buffer RAM is budgeted."""
+        from ..utils.metrics import registry
+        from ..utils.tracing import span
+
+        with span("block:put", size=len(data)):
+            await self._rpc_put_block(hash32, data)
+        registry.incr("block_bytes_written", by=len(data))  # successes only
+
+    async def _rpc_put_block(self, hash32: bytes, data: bytes) -> None:
+        from ..net.stream import bytes_stream
+        from ..utils.latency import phase_span
+
+        layout = self.system.layout_manager.history
+        write_sets = layout.write_sets_of(hash32)
+        quorum = self.system.replication_mode.write_quorum()
+        if self.codec.n_pieces == 1:
+            with phase_span("encode"):
+                # zstd is CPU-bound: at block sizes a thread hop is noise
+                # against the compression itself, so large blocks leave
+                # the event loop (a static loop-blocker check can't see this —
+                # it's compute, not I/O — but it stalled every concurrent
+                # request for the duration of a block compression)
+                if (
+                    self.compression_level is not None
+                    and len(data) >= self.block_config.cpu_offload_min_bytes
+                ):
+                    stored, compressed = await asyncio.to_thread(
+                        self._maybe_compress, data
+                    )
+                else:
+                    stored, compressed = self._maybe_compress(data)
+            async with self.buffers.reserve(len(stored)):
+                # replica sends + their quorum wait are one awaited call;
+                # the whole window is attributed to the fan-out phase.
+                # prio audit (overload plane): foreground S3 PUT fan-out
+                # — PRIO_NORMAL by design, below interactive GET piece
+                # fetches (PRIO_HIGH, api/s3/objects.py) and above every
+                # background plane (PRIO_BACKGROUND: resync, repair,
+                # table sync)
+                with phase_span("fanout"):
+                    await self.helper.try_write_many_sets(
+                        self.endpoint,
+                        write_sets,
+                        ["Put", hash32, {"c": compressed, "s": len(stored)}],
+                        quorum=quorum,
+                        prio=PRIO_NORMAL,
+                        stream_factory=lambda: bytes_stream(stored),
+                    )
+            return
+        # EC: one distinct piece per node rank, placed in EVERY active
+        # layout version (the EC analog of try_write_many_sets, reference
+        # rpc_helper.rs:432-533): a block written mid-migration must be
+        # decodable even if either version's node set dies afterwards.
+        # Pieces are not compressed (parity shards don't compress; data
+        # shards rarely worth it).
+        #
+        # Like the replica path, the PUT returns as soon as every active
+        # version holds its piece quorum; leftover sends finish in the
+        # background (slow nodes still get their piece — they'd otherwise
+        # heal via resync anyway).  Waiting for ALL k+m sends made the EC
+        # PUT p99 the max over k+m nodes vs the replica path's
+        # quorum-of-RF, measurably fattening the tail (bench_s3.py).
+        pieces, piece_hashes = await self._encode_ec(data)
+        send_targets, per_version = self._ec_piece_targets(hash32, layout)
+        # quorum counts DISTINCT pieces stored per layout version; tolerate
+        # up to half the parity pieces missing (resync rebuilds them) — but
+        # EVERY active version's node set must independently reach quorum
+        m = self.codec.n_pieces - self.codec.min_pieces
+        quorum_pieces = self.codec.n_pieces - m // 2
+
+        ok: set[tuple[bytes, int]] = set()
+        failed: set[tuple[bytes, int]] = set()
+        errors: list[str] = []
+        done_ev = asyncio.Event()
+
+        def distinct_ok(vt) -> int:
+            return len({i for (n, i) in vt if (n, i) in ok})
+
+        def satisfied() -> bool:
+            return all(distinct_ok(vt) >= quorum_pieces for vt in per_version)
+
+        def hopeless() -> bool:
+            return any(
+                len({i for (n, i) in vt if (n, i) not in failed})
+                < quorum_pieces
+                for vt in per_version
+            )
+
+        async def one(n: bytes, i: int) -> None:
+            try:
+                # per-send phase spans run in the sender task but share
+                # the caller's trace (context captured at spawn); the
+                # analyzer merges the parallel windows into one wall-
+                # clock fan-out interval
+                with phase_span("fanout"):
+                    # prio audit: EC PUT piece fan-out is foreground
+                    # S3-path work — PRIO_NORMAL, same class as the
+                    # replica fan-out above (interactive reads outrank
+                    # it at PRIO_HIGH; background planes sit below)
+                    meta = {"c": False, "p": i, "l": len(data),
+                            "s": len(pieces[i])}
+                    if piece_hashes is not None:
+                        # hash computed inside the batched encode
+                        # dispatch: the receiver stores it instead of
+                        # re-hashing the piece on its event loop
+                        meta["ph"] = piece_hashes[i]
+                    await self.helper.call(
+                        self.endpoint, n,
+                        ["Put", hash32, meta],
+                        prio=PRIO_NORMAL,
+                        # same deadline as the caller's quorum wait below
+                        # — a longer per-send default would abort slow-
+                        # but-alive sends as "quorum failure" with an
+                        # empty error list
+                        timeout=self.helper.default_timeout,
+                        stream_factory=lambda i=i: bytes_stream(pieces[i]),
+                    )
+                ok.add((n, i))
+            except Exception as e:  # noqa: BLE001 — tallied for Quorum
+                failed.add((n, i))
+                errors.append(f"{n.hex()[:8]}/p{i}: {e!r}")
+            if satisfied() or hopeless():
+                done_ev.set()
+
+        async def send_all() -> None:
+            # the reservation lives here so background-draining sends keep
+            # their piece buffers budgeted until the last one finishes
+            async with self.buffers.reserve(
+                sum(len(pieces[i]) for _n, i in send_targets)
+            ):
+                await asyncio.gather(
+                    *[one(n, i) for n, i in send_targets],
+                    return_exceptions=True,
+                )
+            done_ev.set()
+
+        from ..utils.background import spawn
+
+        sender = spawn(send_all(), name=f"ec-put-{hash32.hex()[:8]}")
+        try:
+            # quorum_wait's EXCLUSIVE time subtracts the fan-out window
+            # (utils/latency.py RESIDUAL_OF): what's left is the tail
+            # where sends finished but a quorum still hadn't
+            with phase_span("quorum_wait"):
+                await asyncio.wait_for(
+                    done_ev.wait(), self.helper.default_timeout + 5.0
+                )
+        except asyncio.TimeoutError:
+            pass
+        if not satisfied():
+            from ..utils.aio import reap
+
+            # cancel AND drain: a bare cancel() returns while the sender
+            # still holds stream buffers and its in-flight RPCs race the
+            # resync queueing below (cancel safety)
+            await reap([sender], log=logger, what="ec-put sender")
+            got = min((distinct_ok(vt) for vt in per_version), default=0)
+            raise Quorum(quorum_pieces, got, errors)
+        # pieces not yet confirmed on their primary node heal via resync.
+        # Queued EAGERLY (before returning success, while stragglers drain
+        # in background): a crash after this return must not leave the
+        # quorum-only block unrecorded for repair.  Queueing a block whose
+        # stragglers then succeed is a no-op for resync.
+        if len(ok) < len(send_targets):
+            self.resync.queue_block(hash32)
+
+    def _ec_piece_targets(
+        self, hash32: bytes, layout
+    ) -> tuple[list[tuple[bytes, int]], list[list[tuple[bytes, int]]]]:
+        """Piece placement spanning all active layout versions.
+
+        Returns (send_targets, per_version): `send_targets` is the deduped
+        list of (node, piece_rank) sends — a node keeps the same piece if
+        its rank agrees across versions, and receives several pieces when
+        it doesn't; `per_version` holds each version's (node, piece) list
+        for independent quorum accounting (reference
+        src/rpc/rpc_helper.rs:432-533 multi-set write guarantee)."""
+        versions = [v for v in layout.versions if v.ring_assignment]
+        if not versions:
+            # zero versions would mean zero sends below — a silent
+            # durability lie; fail like the replica path does
+            raise Error("no layout version with a ring assignment yet")
+        seen: dict[tuple[bytes, int], None] = {}
+        per_version: list[list[tuple[bytes, int]]] = []
+        for v in versions:
+            nodes = v.nodes_of(hash32)
+            if len(nodes) < self.codec.n_pieces:
+                raise Error(
+                    f"EC({self.codec.min_pieces},"
+                    f"{self.codec.n_pieces - self.codec.min_pieces}) needs "
+                    f"{self.codec.n_pieces} nodes per block, layout v"
+                    f"{v.version} assigns {len(nodes)}"
+                )
+            vt = [(nodes[i], i) for i in range(self.codec.n_pieces)]
+            per_version.append(vt)
+            for t in vt:
+                seen.setdefault(t)
+        return list(seen), per_version
+
+    async def rpc_get_block(
+        self, hash32: bytes, prio: int = PRIO_NORMAL, order_tag=None
+    ) -> bytes:
+        """Fetch a block — hedged and (EC) systematic-streamed
+        internally (reference manager.rs:243-344 local-then-peers, plus
+        the EC read pipeline); replica mode reads local disk, then
+        the cache, then peers; EC reads the cache, then gathers pieces.
+        This form assembles the whole block.  `order_tag` serializes the fetch
+        within a multi-block GET pipeline so responses stream
+        back-to-back (reference net/message.rs:62-89)."""
+        from ..utils.metrics import registry
+        from ..utils.tracing import span
+
+        with span("block:get"):
+            parts = [
+                c
+                async for c in self._get_block_chunks(hash32, prio, order_tag)
+            ]
+        data = parts[0] if len(parts) == 1 else b"".join(parts)
+        registry.incr("block_bytes_read", by=len(data))
+        return data
+
+    def start_block_read(
+        self, hash32: bytes, prio: int = PRIO_NORMAL, order_tag=None
+    ) -> "BlockRead":
+        """Begin fetching NOW (a pump task drives the piece machinery)
+        and hand back a streamable handle — the S3 GET pipeline
+        (api/s3/objects.py) prefetches a window of these so block N's
+        systematic pieces stream out while blocks N+1.. are in flight."""
+        return BlockRead(self, hash32, prio, order_tag)
+
+    async def _get_block_chunks(self, hash32: bytes, prio, order_tag=None):
+        """Plaintext chunks of one block, in order (the shared backend of
+        rpc_get_block / BlockRead)."""
+        from ..utils.latency import phase_span
+
+        if self.codec.n_pieces == 1:
+            with phase_span("piece_fetch"):
+                data = await self._replica_get(hash32, prio, order_tag)
+            yield data
+            return
+        async for chunk in self._ec_get_stream(hash32, prio, order_tag):
+            yield chunk
+
+    # --- replica read path ----------------------------------------------------
+
+    async def _replica_get(self, hash32: bytes, prio, order_tag=None) -> bytes:
+        """Replica-mode block read: local disk, then the hot-block cache,
+        then peers raced through the hedge helper — a slow first replica
+        costs one hedge delay, not a full adaptive timeout (the old loop
+        walked peers strictly sequentially)."""
+        local = await self.read_block_local(hash32)
+        if local is not None:
+            return local
+        cached = self.read_cache.get(hash32)
+        if cached is not None:
+            return cached
+        nodes = [
+            n
+            for n in self.helper.request_order(self.read_nodes_of(hash32))
+            if n != self.system.id
+        ]
+        if not nodes:
+            raise Error(f"block {hash32.hex()[:16]} unavailable: no peers")
+        foreground = prio != PRIO_BACKGROUND
+        data = await self._hedged_race(
+            [
+                (n, lambda n=n: self._fetch_replica(n, hash32, prio, order_tag))
+                for n in nodes
+            ],
+            self._hedge_delay(nodes),
+            what=f"block {hash32.hex()[:16]}",
+            hedge=foreground,
+        )
+        # FOREGROUND remote fetches cache (repeat GETs become memory
+        # reads); local disk reads don't — the page cache already holds
+        # those bytes — and neither do background-priority reads: a
+        # resync/rebalance sweep inserting thousands of cold blocks
+        # would evict the hot set exactly while foreground latency
+        # matters (background reads may still HIT the cache above)
+        if foreground:
+            self.read_cache.put(hash32, data)
+        return data
+
+    async def _fetch_replica(
+        self, node: bytes, hash32: bytes, prio, order_tag=None
+    ) -> bytes:
+        # health-tracked + retried: a sick peer fast-fails (circuit
+        # breaker) instead of stalling the GET, and transient transport
+        # blips retry with jittered backoff
+        resp = await self.helper.call(
+            self.endpoint, node, ["Get", hash32], prio=prio,
+            order_tag=order_tag, idempotent=True,
+        )
+        declared = int(resp.body[1].get("s", 4 * 1024 * 1024))
+        # reserve before buffering; held through decompress+verify
+        async with self.buffers.reserve(declared):
+            meta, stored = await _resp_payload(resp)
+            data = zstandard.decompress(stored) if meta.get("c") else stored
+            if blake2sum(data) != hash32:
+                raise Error("hash mismatch from peer")
+            return data
+
+    # --- hedging ---------------------------------------------------
+
+    def _count_hedge(self, outcome: str) -> None:
+        from ..utils.metrics import registry
+
+        registry.incr("block_read_hedges_total", (("outcome", outcome),))
+
+    def _hedge_delay(self, nodes: list[bytes]) -> float:
+        """Seconds a fetch may stay unanswered before a hedge launches:
+        RTT-derived from the slowest HEALTHY candidate's piece-fetch /
+        rtt EWMA (sick peers are hedged immediately, never waited on),
+        floored at `[block] read_hedge_min_msec`."""
+        health = self.helper.health
+        est = 0.0
+        for n in nodes:
+            if n == self.system.id or health.is_sick(n):
+                continue
+            e = health.fetch_latency_estimate(n)
+            if e is not None:
+                est = max(est, e)
+        cfg = self.block_config
+        return max(
+            cfg.read_hedge_min_msec / 1e3, est * cfg.read_hedge_rtt_mult
+        )
+
+    def _victim_order(self, ranks: list[int], nodes: list[bytes]) -> list[int]:
+        """Hedge-victim priority among outstanding ranks: sick/breaker-
+        open peers first, then slowest by the per-peer piece-fetch
+        ranking (rpc/peer_health.py — the slow-rank feed)."""
+        pos = {
+            row["peer"]: i
+            for i, row in enumerate(self.helper.health.piece_fetch_ranking())
+        }
+        return sorted(ranks, key=lambda r: pos.get(nodes[r].hex(), len(pos)))
+
+    async def _hedged_race(
+        self, attempts, delay: float, what: str, hedge: bool = True
+    ):
+        """Race a candidate list with hedging (replica GET path): start
+        the first attempt; when nothing has answered within `delay` of
+        the last event, start the next candidate as a hedge; a FAILED
+        attempt is replaced immediately (failover, not counted).  First
+        success wins; losers are cancelled and drained.  `attempts` is
+        [(node, coro_factory)] in preference order.  `hedge=False`
+        (background-priority reads) keeps the sequential failover but
+        never races extra fetches — resync must not amplify load."""
+        tasks: dict[asyncio.Task, tuple[bytes, bool]] = {}
+        counted: set[asyncio.Task] = set()
+        errors: list[str] = []
+        idx = 0
+        hedge_on = hedge and self.block_config.read_hedge_enabled
+
+        def launch(is_hedge: bool) -> None:
+            nonlocal idx
+            node, factory = attempts[idx]
+            idx += 1
+            t = asyncio.create_task(factory())
+            tasks[t] = (node, is_hedge)
+
+        try:
+            launch(False)
+            while True:
+                pending = [t for t in tasks if not t.done()]
+                if not pending:
+                    if idx < len(attempts):
+                        launch(False)  # every prior attempt failed
+                        continue
+                    raise Error(f"{what} unavailable: {errors}")
+                timeout = (
+                    delay if (hedge_on and idx < len(attempts)) else None
+                )
+                done, _ = await asyncio.wait(
+                    pending, timeout=timeout,
+                    return_when=asyncio.FIRST_COMPLETED,
+                )
+                if not done:
+                    # hedge window expired: race the next candidate
+                    # against the slow in-flight one
+                    launch(True)
+                    continue
+                winner = None
+                for t in done:
+                    node, is_hedge = tasks[t]
+                    exc = t.exception()
+                    if exc is None:
+                        winner = t
+                        break
+                    errors.append(f"{node.hex()[:8]}: {exc!r}")
+                    if is_hedge and t not in counted:
+                        counted.add(t)
+                        self._count_hedge("failed")
+                    # replace the failure NOW even while another attempt
+                    # is still pending — waiting out a second hedge
+                    # window for the next candidate is exactly the stall
+                    # this helper exists to avoid
+                    if idx < len(attempts):
+                        launch(False)
+                if winner is None:
+                    continue
+                for t, (_n, is_hedge) in tasks.items():
+                    if is_hedge and t not in counted:
+                        counted.add(t)
+                        self._count_hedge(
+                            "won" if t is winner else "lost"
+                        )
+                return winner.result()
+        finally:
+            leftovers = [t for t in tasks if not t.done()]
+            if leftovers:
+                from ..utils.aio import reap
+
+                await reap(
+                    leftovers, log=logger, what=f"{what} read attempt"
+                )
+
+    async def _fetch_piece(
+        self, node: bytes, hash32: bytes, piece: int, prio, order_tag=None
+    ) -> tuple[int, bytes]:
+        """-> (block_len, piece_bytes)"""
+        if node == self.system.id:
+            found = self.find_block_file(hash32, piece=piece)
+            if found is None:
+                raise Error("piece not local")
+            stored = await asyncio.to_thread(_read_file_sync, found[0])
+            if found[1]:
+                stored = zstandard.decompress(stored)
+            return unwrap_piece(stored)
+        t0 = time.perf_counter()
+        resp = await self.helper.call(
+            self.endpoint, node, ["Get", hash32, piece], prio=prio,
+            order_tag=order_tag, idempotent=True,
+        )
+        meta, stored = await _resp_payload(resp, budget=self.buffers)
+        if meta.get("c"):
+            stored = zstandard.decompress(stored)
+        blen, data = unwrap_piece(stored)
+        self._note_piece_fetch(
+            node, time.perf_counter() - t0, len(data), hash32=hash32
+        )
+        return blen, data
+
+    def _note_piece_fetch(
+        self, node: bytes, secs: float, nbytes: int, hash32: bytes | None = None
+    ) -> None:
+        """Per-peer EC read attribution (rpc/traffic.py): the peer-health
+        EWMAs feed the /v1/traffic slow-rank ranking, the histogram feeds
+        the per-peer piece-fetch p99 Grafana panel.  The `peer` label is
+        bounded by cluster membership (same space the breaker families
+        use) — never a key or bucket."""
+        from ..utils.metrics import registry
+
+        self.helper.health.record_piece_fetch(node, secs, nbytes)
+        lbl = (("peer", node.hex()[:16]),)
+        registry.observe("block_piece_fetch_duration", lbl, secs)
+        registry.incr("block_piece_fetch_bytes_total", lbl, by=nbytes)
+        # rebalance observatory (rpc/transition.py): while a layout
+        # transition is open, inbound fetches are attributed to the
+        # (src -> dst) pair ledger — the tracker no-ops when idle
+        tt = getattr(self.system, "transition_tracker", None)
+        if tt is not None:
+            tt.note_transfer(
+                node, self.system.id, nbytes,
+                partition=partition_of(hash32) if hash32 else None,
+            )
+
+    async def gather_pieces(
+        self, hash32: bytes, want_k: int, prio=PRIO_NORMAL, exclude_self=False,
+        order_tag=None,
+    ) -> tuple[int, dict[int, bytes]]:
+        """Collect at least want_k distinct pieces -> (block_len, pieces).
+
+        Fast path assumes rank-i placement in the current layout version;
+        the slow path asks every node of EVERY active version what it
+        holds, so blocks written mid-migration (pieces spanning versions)
+        stay readable whichever node set survives."""
+        layout = self.system.layout_manager.history
+        nodes = layout.current().nodes_of(hash32)
+        pieces: dict[int, bytes] = {}
+        block_len = -1
+        errors: list[str] = []
+        # first want_k ranks, widened past rank k-1 when exclude_self
+        # knocks our own rank out — otherwise every repair gather (self is
+        # a holder by definition) fell to the ask-every-node slow path,
+        # one extra RPC round per block in a 10k-block repair plan
+        cand = [
+            (i, nodes[i])
+            for i in range(min(self.codec.n_pieces, len(nodes)))
+            if not (exclude_self and nodes[i] == self.system.id)
+        ]
+        fetches = cand[:want_k]
+        results = await asyncio.gather(
+            *[
+                self._fetch_piece(n, hash32, i, prio, order_tag=order_tag)
+                for i, n in fetches
+            ],
+            return_exceptions=True,
+        )
+        for (i, n), r in zip(fetches, results):
+            if isinstance(r, Exception):
+                errors.append(f"piece {i}@{n.hex()[:8]}: {r!r}")
+            else:
+                block_len, pieces[i] = r
+        if len(pieces) < want_k:
+            blen2 = await self._gather_more(
+                hash32, want_k, pieces, errors, prio,
+                order_tag=order_tag, exclude_self=exclude_self,
+            )
+            if blen2 != -1:
+                block_len = blen2
+        if len(pieces) < want_k:
+            raise Error(
+                f"block {hash32.hex()[:16]}: only {len(pieces)}/{want_k} "
+                f"pieces reachable: {errors}"
+            )
+        return block_len, pieces
+
+    async def _gather_more(
+        self, hash32: bytes, want_k: int, pieces: dict[int, bytes],
+        errors: list[str], prio, order_tag=None, exclude_self=False,
+    ) -> int:
+        """Slow-path gather: ask every node of EVERY active version what
+        it holds and fetch missing pieces until `want_k` — blocks written
+        mid-migration span versions, so rank-placement assumptions don't
+        hold.  Mutates `pieces`/`errors` in place; returns the last
+        learned block_len (-1 when nothing new was fetched).  `order_tag`
+        is threaded through every fetch (it used to
+        be dropped here, losing multi-block GET response pipelining
+        exactly when the cluster was degraded)."""
+        block_len = -1
+        for n in self.helper.request_order(self.storage_nodes_of(hash32)):
+            if len(pieces) >= want_k:
+                break
+            if exclude_self and n == self.system.id:
+                continue
+            try:
+                resp = await self.helper.call(
+                    self.endpoint, n, ["Pieces", hash32], prio=prio,
+                    idempotent=True,
+                )
+                for pi in resp.body or []:
+                    pi = int(pi)
+                    if pi not in pieces:
+                        try:
+                            block_len, pieces[pi] = await self._fetch_piece(
+                                n, hash32, pi, prio, order_tag=order_tag
+                            )
+                        except Exception as e:  # noqa: BLE001
+                            errors.append(f"piece {pi}@{n.hex()[:8]}: {e!r}")
+                    if len(pieces) >= want_k:
+                        break
+            except Exception as e:  # noqa: BLE001
+                errors.append(f"pieces@{n.hex()[:8]}: {e!r}")
+        return block_len
+
+    async def _decode_pieces(
+        self, pieces: dict[int, bytes], blen: int
+    ) -> bytes:
+        """Degraded-read decode: coalesced through the batcher's decode
+        lane (concurrent degraded GETs share one grouped reconstruction
+        dispatch), else a single worker-thread dispatch — either way the
+        codec math stays off the event loop."""
+        if self.batcher is not None:
+            return await self.batcher.decode(pieces, blen)
+        return await asyncio.to_thread(self.codec.decode, pieces, blen)
+
+    async def _ec_get_stream(self, hash32: bytes, prio, order_tag=None):
+        """The EC GET pipeline: an async generator of
+        plaintext chunks.
+
+        Fast path: for ec:k:m the k systematic pieces ARE the plaintext,
+        so all k are fetched concurrently and piece i streams to the
+        caller while piece i+1 is still in flight — zero decode, counted
+        `path="systematic"` via the codec's read hook.  Systematic ranks
+        on sick/breaker-open peers are hedged to parity ranks
+        IMMEDIATELY (never waited on); the rest get one hedge round when
+        nothing lands within the RTT-derived hedge delay, victims
+        ordered by the per-peer slow-rank ranking.  The moment any k
+        pieces are on hand while the next systematic piece is not, the
+        stream falls back to reconstruction with whichever k landed
+        first (`path="reconstruct"`, coalesced through the batcher's
+        decode lane).  If even that cannot reach k, the ask-every-node
+        slow path covers mid-migration blocks.
+
+        Integrity: every remote piece carries its own BLAKE3 (GTP2
+        header, verified in unwrap_piece), so streamed chunks are
+        piece-level-verified; the end-to-end plaintext hash check still
+        runs before the generator finishes, so an inconsistent assembly
+        surfaces as a mid-stream error (the consumer aborts the
+        connection) and is never cached."""
+        from ..utils.latency import phase_span
+
+        cached = self.read_cache.get(hash32)
+        if cached is not None:
+            yield cached
+            return
+
+        k = self.codec.min_pieces
+        layout = self.system.layout_manager.history
+        nodes = layout.current().nodes_of(hash32)
+        health = self.helper.health
+        n_av = min(self.codec.n_pieces, len(nodes))
+        sys_ranks = list(range(min(k, n_av)))
+
+        results: dict[int, bytes] = {}  # rank -> piece payload
+        order: list[int] = []  # rank completion order
+        failed: dict[int, str] = {}
+        errors: list[str] = []
+        tasks: dict[asyncio.Task, int] = {}
+        by_rank: dict[int, asyncio.Task] = {}
+        counted_hedges: set[int] = set()  # parity ranks launched as hedges
+        used: set[int] = set()  # ranks whose bytes served the read
+        blen: int | None = None
+
+        # healthy parity ranks are better hedge targets than sick ones
+        parity_pool = sorted(
+            range(k, n_av),
+            key=lambda r: 1 if health.is_sick(nodes[r]) else 0,
+        )
+
+        def launch(rank: int) -> None:
+            t = asyncio.create_task(
+                self._fetch_piece(
+                    nodes[rank], hash32, rank, prio, order_tag=order_tag
+                )
+            )
+            tasks[t] = rank
+            by_rank[rank] = t
+
+        def inflight() -> int:
+            return sum(1 for t in tasks if not t.done())
+
+        def launch_parity(as_hedge: bool) -> bool:
+            while parity_pool:
+                r = parity_pool.pop(0)
+                if r in by_rank:
+                    continue
+                launch(r)
+                if as_hedge:
+                    counted_hedges.add(r)
+                return True
+            return False
+
+        # background-priority reads (resync handoffs) neither hedge nor
+        # cache: a cold-block sweep must not amplify cluster load or
+        # evict the hot set (they may still HIT the cache above)
+        foreground = prio != PRIO_BACKGROUND
+        hedge_on = (
+            foreground and self.block_config.read_hedge_enabled and n_av > k
+        )
+        for r in sys_ranks:
+            launch(r)
+        if hedge_on:
+            # sick/breaker-open systematic ranks are hedged up front —
+            # their own fetch may still win (a breaker fast-fail costs
+            # nothing), but the read never WAITS on them
+            sick = [
+                r for r in sys_ranks
+                if nodes[r] != self.system.id and health.is_sick(nodes[r])
+            ]
+            for r in self._victim_order(sick, nodes):
+                if not launch_parity(as_hedge=True):
+                    break
+        deadline = (
+            time.monotonic()
+            + self._hedge_delay([nodes[r] for r in sys_ranks])
+            if hedge_on
+            else None
+        )
+
+        emitted = 0  # next systematic rank to stream
+        emitted_bytes = 0
+        out_parts: list[bytes] = []
+        data: bytes | None = None  # set on the reconstruction paths
+
+        try:
+            while True:
+                # stream the ready systematic prefix
+                while emitted < k and emitted in results and blen is not None:
+                    piece = results[emitted]
+                    used.add(emitted)
+                    chunk = piece[: max(0, blen - emitted * len(piece))]
+                    emitted += 1
+                    if chunk:
+                        out_parts.append(chunk)
+                        emitted_bytes += len(chunk)
+                        yield chunk
+                if emitted >= k:
+                    break  # fully systematic: everything streamed
+                if len(results) >= k:
+                    # the next systematic piece is missing but k pieces
+                    # are on hand: reconstruct with whichever k landed
+                    # first (landed data ranks preferred — no matrix
+                    # work for shards already in memory)
+                    use_ranks = [r for r in order if r < k][:k]
+                    for r in order:
+                        if len(use_ranks) >= k:
+                            break
+                        if r >= k:
+                            use_ranks.append(r)
+                    used.update(use_ranks)
+                    with phase_span("decode"):
+                        data = await self._decode_pieces(
+                            {r: results[r] for r in use_ranks}, blen
+                        )
+                    break
+                live = [t for t in tasks if not t.done()]
+                if not live:
+                    # fast path exhausted below k: mid-migration blocks
+                    # keep their pieces under older layout versions
+                    pieces = dict(results)
+                    with phase_span("piece_fetch"):
+                        blen2 = await self._gather_more(
+                            hash32, k, pieces, errors, prio,
+                            order_tag=order_tag,
+                        )
+                    if len(pieces) < k:
+                        raise Error(
+                            f"block {hash32.hex()[:16]}: only "
+                            f"{len(pieces)}/{k} pieces reachable: {errors}"
+                        )
+                    if blen is None:
+                        blen = blen2
+                    used.update(pieces)
+                    with phase_span("decode"):
+                        data = await self._decode_pieces(pieces, blen)
+                    break
+                timeout = None
+                if deadline is not None:
+                    timeout = max(0.0, deadline - time.monotonic())
+                with phase_span("piece_fetch"):
+                    done, _ = await asyncio.wait(
+                        live, timeout=timeout,
+                        return_when=asyncio.FIRST_COMPLETED,
+                    )
+                if not done:
+                    # hedge window expired: hedge every outstanding
+                    # systematic rank, sickest/slowest victims first
+                    deadline = None
+                    outstanding = [
+                        r for r in sys_ranks
+                        if r not in results and r not in failed
+                    ]
+                    for r in self._victim_order(outstanding, nodes):
+                        if not launch_parity(as_hedge=True):
+                            break
+                    continue
+                for t in done:
+                    rank = tasks[t]
+                    if rank in results or rank in failed:
+                        continue
+                    exc = t.exception()
+                    if exc is not None:
+                        failed[rank] = repr(exc)
+                        errors.append(
+                            f"piece {rank}@{nodes[rank].hex()[:8]}: {exc!r}"
+                        )
+                        # replace a FAILED fetch immediately while a
+                        # deficit remains (failover, not a timed hedge)
+                        if len(results) + inflight() < k:
+                            launch_parity(as_hedge=False)
+                    else:
+                        blen_r, piece = t.result()
+                        if blen is None:
+                            blen = blen_r
+                        results[rank] = piece
+                        order.append(rank)
+
+            if data is not None:
+                # reconstruction path: verify BEFORE streaming the
+                # remainder (the already-streamed prefix is exactly the
+                # landed data shards the decode reused, and each carried
+                # its own piece hash)
+                if blake2sum(data) != hash32:
+                    raise Error("EC decode does not match block hash")
+                rest = data[emitted_bytes:]
+                if rest:
+                    yield rest
+                if foreground:
+                    self.read_cache.put(hash32, data)
+            else:
+                plain = (
+                    out_parts[0] if len(out_parts) == 1 else b"".join(out_parts)
+                )
+                if blake2sum(plain) != hash32:
+                    raise Error(
+                        "EC systematic read does not match block hash"
+                    )
+                # the join happened HERE (piece-by-piece, streamed), so
+                # the codec never saw a decode() — report it so the
+                # op="decode" systematic/reconstruct split stays honest
+                note = getattr(self.codec, "note_systematic_read", None)
+                if note is not None:
+                    note(len(plain))
+                if foreground:
+                    self.read_cache.put(hash32, plain)
+        finally:
+            # hedge accounting + straggler cleanup (a systematic
+            # completion leaves its hedges in flight by design)
+            for r in counted_hedges:
+                if r in used:
+                    self._count_hedge("won")
+                elif r in failed:
+                    self._count_hedge("failed")
+                else:
+                    self._count_hedge("lost")
+            leftovers = [t for t in tasks if not t.done()]
+            if leftovers:
+                from ..utils.aio import reap
+
+                await reap(leftovers, log=logger, what="ec-get piece fetch")
+
+    def _verify_gathered(self, hash32: bytes, pieces: dict[int, bytes], blen: int):
+        """Reject reconstruction inputs whose decoded block doesn't match
+        the content hash — otherwise one corrupt surviving piece would be
+        laundered into freshly rebuilt pieces."""
+        if blake2sum(self.codec.decode(dict(pieces), blen)) != hash32:
+            raise Error(
+                f"block {hash32.hex()[:16]}: gathered pieces are corrupt"
+            )
+
+    def ec_ranks_of(self, hash32: bytes) -> list[int]:
+        """THIS node's piece ranks across ALL active layout versions,
+        newest version first.  A node whose rank differs between versions
+        holds SEVERAL pieces while a migration is open (the write path
+        places them; resync must track and heal every one, or the
+        per-version decode guarantee silently erodes)."""
+        layout = self.system.layout_manager.history
+        ranks: list[int] = []
+        for v in reversed([v for v in layout.versions if v.ring_assignment]):
+            nodes = v.nodes_of(hash32)
+            if self.system.id in nodes[: self.codec.n_pieces]:
+                r = nodes.index(self.system.id)
+                if r not in ranks:
+                    ranks.append(r)
+        return ranks
+
+    async def reconstruct_local_piece(self, hash32: bytes) -> bool:
+        """Rebuild THIS node's missing piece(s) from surviving peers (EC
+        resync path).  Returns True if any piece was stored."""
+        missing = [
+            r for r in self.ec_ranks_of(hash32)
+            if not self.find_block_file(hash32, piece=r)
+        ]
+        if not missing:
+            return False
+        blen, pieces = await self.gather_pieces(
+            hash32, self.codec.min_pieces, prio=PRIO_BACKGROUND, exclude_self=True
+        )
+        self._verify_gathered(hash32, pieces, blen)
+        rec = self.codec.reconstruct_pieces(pieces, missing, blen)
+        for r in missing:
+            await self.write_block_local(
+                hash32, wrap_piece(blen, rec[r]), False, piece=r
+            )
+        return True
+
+    async def bulk_reconstruct(self, hashes: list[bytes]) -> int:
+        """Batched EC repair: gather surviving pieces for MANY blocks
+        concurrently, run ONE grouped reconstruction through the codec
+        (one device dispatch per erasure pattern), store the results.
+        Blocks that cannot be gathered are queued for resync's
+        retry/backoff loop.  Returns pieces rebuilt."""
+        todo: list[tuple[bytes, int]] = []
+        for h in hashes:
+            if not self.rc.is_needed(h):
+                continue  # never resurrect deleted blocks
+            for r in self.ec_ranks_of(h):
+                if not self.find_block_file(h, piece=r):
+                    todo.append((h, r))
+        if not todo:
+            return 0
+
+        sem = asyncio.Semaphore(16)
+
+        async def gather_one(h, rank):
+            async with sem:
+                try:
+                    blen, pieces = await self.gather_pieces(
+                        h, self.codec.min_pieces, prio=PRIO_BACKGROUND,
+                        exclude_self=True,
+                    )
+                    self._verify_gathered(h, pieces, blen)
+                    return (h, rank, pieces, blen)
+                except Error as e:
+                    logger.warning(
+                        "bulk repair: cannot gather %s (%r); queued for resync",
+                        h.hex()[:16], e,
+                    )
+                    self.resync.queue_block(h)
+                    return None
+
+        gathered = await asyncio.gather(*[gather_one(h, r) for h, r in todo])
+        batch = [g for g in gathered if g is not None]
+        if not batch:
+            return 0
+        # worker-thread hop: the grouped reconstruction is a device
+        # dispatch + host fetch (or a long native-codec run) — inline it
+        # would stall the event loop for the whole repair batch, exactly
+        # what the codec batcher already avoids on the encode side
+        recs = await asyncio.to_thread(
+            self.codec.reconstruct_batch,
+            [(pieces, [rank], blen) for _h, rank, pieces, blen in batch],
+        )
+        n = 0
+        for (h, rank, _p, blen), rec in zip(batch, recs):
+            await self.write_block_local(
+                h, wrap_piece(blen, rec[rank]), False, piece=rank
+            )
+            n += 1
+        return n
+
+
+_READ_EOF = object()
+
+
+class BlockRead:
+    """One in-flight block read (the S3 GET pipeline's unit of
+    prefetch, api/s3/objects.py): fetching starts at CONSTRUCTION in a
+    supervised pump task — context captured at spawn keeps its phase
+    spans on the requesting trace, the EC-PUT-sender pattern — so a
+    window of BlockReads overlaps across blocks while `chunks()`
+    streams each block's systematic pieces in arrival order within it.
+
+    The queue holds at most one block's worth of chunks (the pump
+    produces one block), so per-read RAM is bounded by block_size just
+    like the assembled form was."""
+
+    def __init__(self, mgr: BlockManager, hash32: bytes, prio, order_tag):
+        from ..utils.background import spawn
+
+        self._q: asyncio.Queue = asyncio.Queue()
+        self._task = spawn(
+            self._pump(mgr, hash32, prio, order_tag),
+            name=f"block-read-{hash32.hex()[:8]}",
+        )
+
+    async def _pump(self, mgr, hash32, prio, order_tag) -> None:
+        from ..utils.metrics import registry
+        from ..utils.tracing import span
+
+        try:
+            total = 0
+            with span("block:get"):
+                async for chunk in mgr._get_block_chunks(
+                    hash32, prio, order_tag
+                ):
+                    total += len(chunk)
+                    self._q.put_nowait(chunk)
+            registry.incr("block_bytes_read", by=total)
+            self._q.put_nowait(_READ_EOF)
+        except asyncio.CancelledError:
+            # unblock a consumer racing the abort, then end CANCELLED
+            self._q.put_nowait(Error("block read aborted"))
+            raise
+        except Exception as e:  # noqa: BLE001 — delivered to the consumer
+            self._q.put_nowait(e)
+
+    async def chunks(self):
+        """Plaintext chunks in block order; raises what the fetch
+        raised."""
+        while True:
+            item = await self._q.get()
+            if item is _READ_EOF:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
+    async def bytes(self) -> bytes:
+        parts = [c async for c in self.chunks()]
+        return parts[0] if len(parts) == 1 else b"".join(parts)
+
+    async def abort(self) -> None:
+        """Cancel + drain the pump (consumer-gone teardown)."""
+        from ..utils.aio import reap
+
+        await reap([self._task], log=logger, what="block read")

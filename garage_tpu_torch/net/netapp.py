@@ -1,0 +1,297 @@
+"""NetApp: the per-node RPC hub (reference src/net/netapp.rs:65).
+
+Owns the node's ed25519 identity, the TCP listener, the table of named
+endpoints, and the pool of peer connections (one authenticated multiplexed
+connection per peer, dialed lazily and shared).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import Any, AsyncIterator, Awaitable, Callable
+
+from .connection import Connection, RemoteError
+from .handshake import HandshakeError, handshake, node_id_of
+from .message import PRIO_NORMAL, Req, Resp
+
+logger = logging.getLogger("garage.net")
+
+
+def _set_nodelay(writer: asyncio.StreamWriter) -> None:
+    """Disable Nagle on RPC sockets: a request/response pattern with
+    small frames can otherwise stall on the delayed-ACK timer per round
+    trip on real networks (loopback benches are unaffected)."""
+    import socket
+
+    sock = writer.get_extra_info("socket")
+    if sock is not None:
+        try:
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        except OSError:
+            pass
+
+
+class RpcError(Exception):
+    pass
+
+
+class Endpoint:
+    """A named RPC endpoint; register a handler or call remote peers."""
+
+    def __init__(self, netapp: "NetApp", path: str):
+        self.netapp = netapp
+        self.path = path
+        self.handler: Callable[[bytes, Req], Awaitable[Resp]] | None = None
+
+    def set_handler(self, fn: Callable[[bytes, Req], Awaitable[Resp]]) -> None:
+        """fn(from_node_id, req) -> resp"""
+        self.handler = fn
+
+    async def call(
+        self,
+        target: bytes,
+        msg: Any,
+        prio: int = PRIO_NORMAL,
+        timeout: float | None = 30.0,
+        stream: AsyncIterator[bytes] | None = None,
+        order_tag=None,
+    ) -> Resp:
+        from ..utils.metrics import registry
+        from ..utils.tracing import NOOP_SPAN, tracer
+
+        lbl = (("endpoint", self.path),)
+        registry.incr("rpc_request_counter", lbl + (("to", target.hex()[:16]),))
+        # NOOP_SPAN when disabled: the hot path allocates no span, no
+        # name string, no attr dict (asserted by test_observability.py)
+        cm = (
+            tracer.span("rpc:" + self.path, to=target.hex()[:16])
+            if tracer.enabled
+            else NOOP_SPAN
+        )
+        with cm:
+            req = Req(msg, stream=stream, order_tag=order_tag)
+            if tracer.enabled:
+                # inside the rpc span: the remote handler becomes ITS child
+                req.traceparent = tracer.inject()
+            with registry.timer("rpc_request_duration", lbl):
+                try:
+                    return await self.netapp.call(
+                        target, self.path, req,
+                        prio=prio, timeout=timeout,
+                    )
+                except asyncio.TimeoutError:
+                    # reference exports rpc_timeout_counter separately from
+                    # generic errors (src/rpc/rpc_helper.rs:172-217)
+                    registry.incr("rpc_timeout_counter", lbl)
+                    raise
+                except Exception:
+                    registry.incr("rpc_error_counter", lbl)
+                    raise
+
+
+class NetApp:
+    def __init__(self, network_key: bytes, node_privkey: bytes):
+        self.network_key = network_key
+        self.node_privkey = node_privkey
+        self.id: bytes = node_id_of(node_privkey)
+        self.endpoints: dict[str, Endpoint] = {}
+        self.conns: dict[bytes, Connection] = {}
+        # every live Connection, including ones displaced from `conns` by a
+        # simultaneous dial in the other direction — needed for shutdown
+        # (Server.wait_closed blocks until all accepted transports close)
+        self.all_conns: set[Connection] = set()
+        self._connecting: dict[bytes, asyncio.Lock] = {}
+        self.server: asyncio.AbstractServer | None = None
+        self._closing = False  # set by shutdown(): late accepts are refused
+        self.bind_addr: tuple[str, int] | None = None
+        # fault-injection seam (chaos tests): peers in this set are
+        # unreachable — calls fail fast, like a network partition
+        self.blocked_peers: set[bytes] = set()
+        # seedable deterministic fault plane (net/fault.py FaultPlan):
+        # per-peer latency/jitter (also the bench seam for simulated
+        # inter-node RTT), probabilistic drop (hang-to-timeout), and
+        # response-stream truncation for outgoing + served traffic
+        self.fault_plan = None
+        self.on_connected: Callable[[bytes, bool], None] | None = None
+        self.on_disconnected: Callable[[bytes], None] | None = None
+
+    # --- endpoints -----------------------------------------------------------
+
+    def endpoint(self, path: str) -> Endpoint:
+        if path not in self.endpoints:
+            self.endpoints[path] = Endpoint(self, path)
+        return self.endpoints[path]
+
+    async def _dispatch(self, path: str, from_id: bytes, req: Req) -> Resp:
+        ep = self.endpoints.get(path)
+        if ep is None or ep.handler is None:
+            raise RpcError(f"no handler for endpoint {path!r}")
+        from ..utils.metrics import registry
+        from ..utils.tracing import NOOP_SPAN, tracer
+
+        # remote-parent extraction: a request arriving over the wire joins
+        # the caller's trace (one trace id per logical request across the
+        # whole mesh); the local-shortcut path parents via contextvars
+        cm = (
+            tracer.span(
+                "rpc-handle:" + path,
+                remote_parent=tracer.extract(req.traceparent),
+                from_=from_id.hex()[:16],
+                node=self.id.hex()[:16],
+            )
+            if tracer.enabled
+            else NOOP_SPAN
+        )
+        with cm:
+            with registry.timer("rpc_handle_duration", (("endpoint", path),)):
+                resp = await ep.handler(from_id, req)
+        if (
+            self.fault_plan is not None
+            and from_id != self.id
+            and resp.stream is not None
+        ):
+            # nemesis: this node's uplink may cut served streams short
+            resp = Resp(
+                resp.body,
+                stream=self.fault_plan.maybe_truncate_stream(
+                    from_id, resp.stream
+                ),
+                order_tag=resp.order_tag,
+            )
+        return resp
+
+    # --- connections ---------------------------------------------------------
+
+    async def listen(self, host: str, port: int) -> None:
+        self.server = await asyncio.start_server(self._accept, host, port)
+        self.bind_addr = (host, self.server.sockets[0].getsockname()[1])
+        logger.info("%s listening on %s:%d", self.id.hex()[:8], host, self.bind_addr[1])
+
+    async def _accept(self, reader, writer) -> None:
+        _set_nodelay(writer)
+        try:
+            box = await asyncio.wait_for(
+                handshake(
+                    reader, writer, self.network_key, self.node_privkey,
+                    is_server=True,
+                ),
+                timeout=10.0,
+            )
+        except (HandshakeError, asyncio.TimeoutError, OSError, EOFError,
+                asyncio.IncompleteReadError) as e:
+            logger.info("incoming handshake failed: %r", e)
+            writer.close()
+            return
+        if self._closing:  # accepted just before shutdown stopped the server
+            writer.close()
+            return
+        conn = Connection(
+            box, self._dispatch, on_close=self._on_conn_close, initiator=False
+        )
+        self._install_conn(conn)
+        if self.on_connected:
+            self.on_connected(box.peer_id, True)
+
+    async def connect(self, addr: tuple[str, int], peer_id: bytes | None = None) -> bytes:
+        """Dial a peer; returns its node id.  Reuses an existing connection."""
+        if peer_id is not None and peer_id in self.conns:
+            return peer_id
+        lock = self._connecting.setdefault(peer_id or b"?" + repr(addr).encode(), asyncio.Lock())
+        async with lock:  # dial-dedup lock: holding it across the dial IS the mechanism that collapses concurrent connects to one
+            if peer_id is not None and peer_id in self.conns:
+                return peer_id
+            reader, writer = await asyncio.open_connection(addr[0], addr[1])
+            _set_nodelay(writer)
+            try:
+                box = await asyncio.wait_for(
+                    handshake(
+                        reader, writer, self.network_key, self.node_privkey,
+                        is_server=False, expected_peer_id=peer_id,
+                    ),
+                    timeout=10.0,
+                )
+            except BaseException:
+                writer.close()
+                raise
+            conn = Connection(
+                box, self._dispatch, on_close=self._on_conn_close, initiator=True
+            )
+            self._install_conn(conn)
+            if self.on_connected:
+                self.on_connected(box.peer_id, False)
+            return box.peer_id
+
+    def _install_conn(self, conn: Connection) -> None:
+        old = self.conns.get(conn.peer_id)
+        self.conns[conn.peer_id] = conn
+        self.all_conns.add(conn)
+        conn.start()
+        if old is not None:
+            # displaced by a reconnect or simultaneous dial: close the old
+            # connection so its socket and tasks don't leak (supervised —
+            # a failed close would otherwise vanish with the task handle)
+            from ..utils.aio import spawn_supervised
+
+            spawn_supervised(
+                old.close(), name=f"conn-close-{conn.peer_id.hex()[:8]}"
+            )
+
+    def _on_conn_close(self, conn: Connection) -> None:
+        self.all_conns.discard(conn)
+        cur = self.conns.get(conn.peer_id)
+        if cur is conn:
+            del self.conns[conn.peer_id]
+            if self.on_disconnected:
+                self.on_disconnected(conn.peer_id)
+
+    def is_connected(self, peer_id: bytes) -> bool:
+        return peer_id in self.conns
+
+    async def call(
+        self,
+        target: bytes,
+        path: str,
+        req: Req,
+        prio: int = PRIO_NORMAL,
+        timeout: float | None = 30.0,
+    ) -> Resp:
+        if target == self.id:
+            # local shortcut (reference calls local handlers directly too)
+            return await self._dispatch(path, self.id, req)
+        if target in self.blocked_peers:
+            raise RpcError(f"peer {target.hex()[:16]} unreachable (partition)")
+        if self.fault_plan is not None:
+            delay = self.fault_plan.rpc_delay(target)
+            if delay:
+                await asyncio.sleep(delay)
+            if self.fault_plan.should_drop(target):
+                # a lost request: hang until the caller's timeout fires,
+                # like a real dropped packet (this is what exercises the
+                # adaptive timeouts + circuit breaker, not a fast error)
+                await asyncio.sleep(timeout if timeout is not None else 3600.0)
+                raise asyncio.TimeoutError(
+                    f"injected drop to {target.hex()[:16]}"
+                )
+        conn = self.conns.get(target)
+        if conn is None:
+            raise RpcError(f"not connected to {target.hex()[:16]}")
+        return await conn.call(path, req, prio=prio, timeout=timeout)
+
+    async def shutdown(self) -> None:
+        # Server.wait_closed (3.12+) blocks until every accepted transport
+        # has disconnected: stop accepting first, then close connections
+        # until none is left — a peer's dial accepted while earlier ones
+        # were closing would otherwise stay open and hold the wait forever
+        self._closing = True
+        if self.server:
+            self.server.close()
+        while self.all_conns:
+            for conn in list(self.all_conns):
+                await conn.close()
+                self.all_conns.discard(conn)
+        if self.server:
+            await self.server.wait_closed()
+
+
+__all__ = ["NetApp", "Endpoint", "RpcError", "RemoteError"]
