@@ -11,9 +11,12 @@ and the block store through the entry points a storage node calls, at
 EC(8,3) with 1 MiB blocks:
 
   1. device line: name, count, `nvidia-smi` name and power limit
-  2. build: both kernels, build seconds, ptxas register/spill lines,
-     and the int32 opcodes and shared-memory loads in the SASS of K2
-     (the count its bound uses) and of K1's two table widths
+  2. build: both kernels (and the replaced K2 design kept as a
+     yardstick, tools/blake3_block_per_row.cu), build seconds, ptxas
+     register and stack-frame lines per kernel, and the int32 opcodes
+     and shared-memory loads in the SASS of K2's kernels (the
+     multi-chunk kernel's per compression: the counts its bound uses)
+     and of K1's two table widths
   3. K1 (GF(2^8) coding) vs `gf_bitmatmul`: EC(8,3) encode at B=64,
      S=131072; two EC(8,3) repair patterns; EC(16,4) encode at
      S=65536; a ragged S and a byte-path S; r = 6 and r = 12 (8-byte
@@ -22,10 +25,13 @@ EC(8,3) with 1 MiB blocks:
      replay of 50 launches (the card's time without the host), plain
      time, bound, GB/s
   4. K2 (BLAKE3) vs `blake3_batch_ref` on (64*11, 131072) rows and on
-     L in {64, 1024, 4096}; a few rows vs the pure-Python oracle; then
-     K3 (`encode_hash_tensor`, B=64) and K5 (the pipeline's `fwd`,
+     L in {64, 1024, 4096}; a few rows vs the pure-Python oracle; eager
+     and CUDA-graph times beside the replaced design's on the same rows;
+     then K3 (`encode_hash_tensor`, B=64) and K5 (the pipeline's `fwd`,
      B=256) vs the plain versions composed the same way, with their
-     bounds (K1's byte bound plus K2's operation bound)
+     bounds (K1's byte bound plus K2's operation bound), and K3's split:
+     the copy design's allocation and copy, K1 through a strided view
+     and K2 on the k+m buffer, beside K1 + K2 alone
   5. the slice, with every launch counter set to 0 just before it:
      256 concurrent 1 MiB PUTs through CodecBatcher(EcCodec) (pieces
      vs the numpy oracle, every piece hash vs the plain hasher on the
@@ -49,13 +55,15 @@ EC(8,3) with 1 MiB blocks:
      vs the plain hasher), GET (bit-exact), degraded GET with 3 nodes
      stopped (bit-exact, through the batcher's decode lane), repair of
      a node restarted with its data dir wiped (`drive_bulk`; piece files
-     byte-identical), a `ScrubWorker` pass that finds exactly 3 flipped
+     byte-identical; its verification and rebuild dispatches, at most 8
+     K1 launches), a `ScrubWorker` pass that finds exactly 3 flipped
      bytes through K2, and resync; each part's wall time, K1/K2
      launches and dispatch breakdown; then a cProfile of 64 more PUTs
      and GETs
   8. one JSON line listing each kernel: launches in phase 5 (in phase 6
      for the fan-out; `launches_block_store` in phase 7), mismatches,
-     times and bound
+     times and bound (K2's with its graph time, the replaced design's
+     times, its stack frames and K3 against K1 + K2)
 
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero without it, as does a machine without CUDA.
@@ -68,7 +76,6 @@ import cProfile
 import json
 import os
 import pstats
-import re
 import shutil
 import subprocess
 import sys
@@ -92,23 +99,23 @@ from garage_tpu_torch.ops.ec_cuda import (
     EcCuda, coding_state_from_numpy, ec_apply_mesh, encode_hash_tensor, gf_bitmatmul,
     gf_bitmatmul_cuda,
 )
-from garage_tpu_torch.ops.hash_cuda import blake3_batch, blake3_batch_ref
+from garage_tpu_torch.ops.hash_cuda import (
+    blake3_batch, blake3_batch_ref, blake3_pieces, blake3_pieces_ref,
+)
 from garage_tpu_torch.parallel.mesh import make_mesh
 from garage_tpu_torch.tools.block_cluster import (
     make_cluster, restart_node, stop_all, stop_node, wait_until,
 )
+from garage_tpu_torch.tools.k2_compare import (
+    BLAKE3_ADD_OPS, BLAKE3_ALU_ONLY_OPS, blake3_bound_ms, old_k2,
+)
+from garage_tpu_torch.tools.sass import per_compression, sass_int_ops
 from garage_tpu_torch.tools.timing import graph_ms, time_ms
 from garage_tpu_torch.utils.background import WorkerState
 from garage_tpu_torch.utils.data import blake2sum
 from garage_tpu_torch.utils.metrics import registry
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, at the 700 W limit
-INT32_LANES_PER_SM = 64  # per pipe: the ALU pipe, and the IMAD pipe
-# int32 instructions of one compression, counted in csrc/blake3.cu: the
-# XORs and rotates (LOP3, SHF/PRMT) run only on the ALU pipe; the adds
-# may also issue on the IMAD pipe (IMAD.IADD)
-BLAKE3_ALU_ONLY_OPS = 7 * 8 * 8 + 8
-BLAKE3_ADD_OPS = 7 * 8 * 4
 SEED = 0
 BLOCK = 1 << 20
 # phase 7's node directories live under the checkout's gitignored build/
@@ -130,29 +137,6 @@ def smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-
-
-def sass_int_ops(so_path, kernel: str) -> dict[str, int] | None:
-    """Counts of the int32 opcodes (IADD3, IMAD, LOP3, SHF, PRMT) and the
-    shared-memory loads (LDS) in one kernel's SASS, read with cuobjdump;
-    IMAD and LDS by their full names, since IMAD.IADD is an add and
-    IMAD.MOV a move, and LDS.64 moves two words.  A check on the
-    instruction counts the bounds and PERF.md use.  None where cuobjdump
-    is missing."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return None
-    sass = subprocess.run([tool, "-sass", str(so_path)],
-                          capture_output=True, text=True, check=True).stdout
-    for part in sass.split("Function : ")[1:]:
-        if kernel in part.splitlines()[0]:
-            ops = re.findall(
-                r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9.]*)", part)
-            names = [op if op.startswith(("IMAD", "LDS")) else op.split(".")[0]
-                     for op in ops]
-            return {op: names.count(op) for op in sorted(set(names))
-                    if op.split(".")[0] in ("IADD3", "IMAD", "LOP3", "SHF", "PRMT", "LDS")}
-    raise SmokeFailure(f"{kernel} not found in the SASS of {so_path}")
 
 
 def rand_u8(shape, gen, dev) -> torch.Tensor:
@@ -225,61 +209,113 @@ def check_k1(dev, gen) -> dict:
 # --- phase 4: K2 ---------------------------------------------------------------
 
 
-def blake3_bound_ms(n: int, length: int, sm_count: int, clock_hz: float):
-    chunks = max(1, length // 1024)
-    comps = n * (length // 64 + (chunks - 1 if chunks > 1 else 0))
-    # lane-cycles per compression on one SM: the ALU pipe carries at least
-    # the ALU-only ops, and both pipes together carry every op
-    lane_cycles = max(BLAKE3_ALU_ONLY_OPS / INT32_LANES_PER_SM,
-                      (BLAKE3_ALU_ONLY_OPS + BLAKE3_ADD_OPS) / (2 * INT32_LANES_PER_SM))
-    ops_ms = comps * lane_cycles / (sm_count * clock_hz) * 1e3
-    bytes_ms = (n * length + n * 32) / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+K2_SHAPES = ((64 * (K + M), 131072), (4096, 64), (4096, 1024), (2048, 4096))
 
 
 def check_k2(dev, gen, sm_count: int, clock_hz: float) -> dict:
+    """K2 at each shape against `blake3_batch_ref` and the pure-Python
+    oracle; timed eager (20 calls) and by CUDA-graph replay, beside the
+    design it replaced (tools/blake3_block_per_row.cu) timed the same
+    way on the same rows, and beside the plain version."""
     rows = {}
-    for n, length in ((64 * (K + M), 131072), (4096, 64), (4096, 1024), (2048, 4096)):
+    for n, length in K2_SHAPES:
         x = rand_u8((n, length), gen, dev)
         got = blake3_batch(x)
         want = blake3_batch_ref(x)
+        old_out = torch.empty_like(got)
+        old_k2(x, old_out)
         torch.cuda.synchronize()
         mism, err = diff(got, want)
+        require(torch.equal(old_out, want), f"K2 L={length}: the replaced design disagrees")
         got_np, x_np = got.cpu().numpy(), x[:3].cpu().numpy()
         for i in range(2 if length > 4096 else 3):
             require(bytes(got_np[i]) == blake3(bytes(x_np[i])),
                     f"K2 L={length}: row {i} differs from the pure-Python oracle")
-        kern_ms = time_ms(lambda: blake3_batch(x), 20)
+        # both through a wrapper that allocates its output, as the port's does
+        kern_ms, old_ms = (time_ms(lambda: blake3_batch(x), 20),
+                           time_ms(lambda: old_k2(x), 20))
+        kern_graph, old_graph = (graph_ms(lambda: blake3_batch(x), 20),
+                                 graph_ms(lambda: old_k2(x), 20))
         plain_ms = time_ms(lambda: blake3_batch_ref(x), 1)
         bound_ms, bound_by = blake3_bound_ms(n, length, sm_count, clock_hz)
         rows[(n, length)] = {
-            "mismatches": mism, "max_abs_err": err, "ms": kern_ms,
+            "mismatches": mism, "max_abs_err": err, "ms": kern_ms, "graph_ms": kern_graph,
+            "old_ms": old_ms, "old_graph_ms": old_graph,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         }
         print(f"K2 rows={n} L={length}: mismatches={mism} kernel_ms={kern_ms:.6f} "
-              f"plain_ms={plain_ms:.6f} bound_us={bound_ms * 1e3:.3f} ({bound_by}) "
+              f"graph_ms={kern_graph:.6f} replaced_design_ms={old_ms:.6f} "
+              f"replaced_design_graph_ms={old_graph:.6f} plain_ms={plain_ms:.6f} "
+              f"bound_us={bound_ms * 1e3:.3f} ({bound_by}) "
               f"achieved_GBps={n * length / (kern_ms * 1e-3) / 1e9:.3f} "
-              f"bound_share={bound_ms / kern_ms:.4f}")
+              f"bound_share={bound_ms / kern_ms:.4f} graph_share={bound_ms / kern_graph:.4f} "
+              f"replaced_graph_share={bound_ms / old_graph:.4f}")
         require(mism == 0, f"K2 L={length}: {mism} digest bytes differ from blake3_batch_ref")
     return rows
 
 
+def split_k3(dev, gen, bm, s: int, b: int = 64) -> dict:
+    """Where the time of a K3 dispatch goes, by CUDA events (eager, 20
+    calls) and CUDA-graph replay at B=64: the parts of the design that
+    copied the data shards into one k+m buffer (allocation and copy, K1
+    writing parity through the buffer's strided view, K2 on the buffer;
+    the replaced K2 too), beside K1 into a contiguous tensor, K2 reading
+    the pieces where they lie, and K3 as it is."""
+    n = K + M
+    x = rand_u8((b, K, s), gen, dev)
+    shards = torch.empty((b, n, s), dtype=torch.uint8, device=dev)
+    shards[:, :K].copy_(x)
+    parity = torch.empty((b, M, s), dtype=torch.uint8, device=dev)
+    flat_out = torch.empty((b * n, 32), dtype=torch.uint8, device=dev)
+
+    def alloc_copy():
+        buf = torch.empty((b, n, s), dtype=torch.uint8, device=dev)
+        buf[:, :K].copy_(x)
+
+    def copy_k3():  # the design K3 replaced, its K2 included
+        buf = torch.empty((b, n, s), dtype=torch.uint8, device=dev)
+        buf[:, :K].copy_(x)
+        gf_bitmatmul_cuda(bm, buf[:, :K], out=buf[:, K:])
+        old_k2(buf.view(b * n, s), flat_out)
+
+    parts = {
+        "alloc_copy": alloc_copy,
+        "k1_strided": lambda: gf_bitmatmul_cuda(bm, shards[:, :K], out=shards[:, K:]),
+        "k1_contiguous": lambda: gf_bitmatmul_cuda(bm, x, out=parity),
+        "k2_buffer": lambda: blake3_batch(shards.view(b * n, s)),
+        "k2_replaced_buffer": lambda: old_k2(shards.view(b * n, s), flat_out),
+        "k2_pieces": lambda: blake3_pieces(x, parity),
+        "k3_copy_design": copy_k3,
+        "k3": lambda: encode_hash_tensor(bm, x),
+    }
+    out = {name: {"ms": time_ms(fn, 20), "graph_ms": graph_ms(fn, 20)}
+           for name, fn in parts.items()}
+    k1_k2 = {w: out["k1_contiguous"][w] + out["k2_buffer"][w] for w in ("ms", "graph_ms")}
+    print(f"K3 split B={b} S={s} (ms eager / graph): " + "; ".join(
+        f"{name} {v['ms']:.6f} / {v['graph_ms']:.6f}" for name, v in out.items()))
+    print(f"K3 B={b}: k3 {out['k3']['ms']:.6f} / {out['k3']['graph_ms']:.6f} ms against "
+          f"K1 + K2 alone {k1_k2['ms']:.6f} / {k1_k2['graph_ms']:.6f} ms: "
+          f"{out['k3']['ms'] / k1_k2['ms']:.4f}x eager, "
+          f"{out['k3']['graph_ms'] / k1_k2['graph_ms']:.4f}x graph")
+    return {"parts": out, "k1_plus_k2": k1_k2}
+
+
 def time_composites(dev, gen, sm_count: int, clock_hz: float) -> dict:
-    """K3 (`encode_hash_tensor`: K1 then K2 on one stream) at a full
-    batcher dispatch, B=64, and K5 (the pipeline's `fwd`: K3 plus the
-    scrub statistics) at phase 5's scrub batch, B=256; EC(8,3), 1 MiB
-    blocks.  Each against the same composition of the plain versions
-    (K1's in 64-block chunks) and against its bound: K1's byte bound
-    plus K2's operation bound at the same shape."""
+    """K3 (`encode_hash_tensor`: K1, then K2 over the data and parity
+    pieces where they lie, on one stream) at a full batcher dispatch,
+    B=64, and K5 (the pipeline's `fwd`: K3 plus the scrub statistics) at
+    phase 5's scrub batch, B=256; EC(8,3), 1 MiB blocks.  Each against
+    the same composition of the plain versions (K1's in 64-block chunks)
+    and against its bound: K1's byte bound plus K2's operation bound at
+    the same shape.  Then K3's split (`split_k3`)."""
     s = BLOCK // K
     bm = coding_state_from_numpy(gf.cauchy_parity_matrix(K, M), dev)["bitmat"]
     fwd = ScrubRepairPipeline(K, M, s, device=dev).encode_and_hash_fn()
 
     def plain(x, stats: bool):
         par = torch.cat([gf_bitmatmul(bm, x[i:i + 64]) for i in range(0, x.shape[0], 64)])
-        shards = torch.cat([x, par], dim=1)
-        h = blake3_batch_ref(shards.view(-1, s)).view(x.shape[0], K + M, 32)
-        return (par, h, scrub_stats(h)) if stats else (shards, h)
+        h = blake3_pieces_ref(x, par)
+        return (par, h, scrub_stats(h)) if stats else (par, h)
 
     rows = {}
     for name, b, kern, stats in (("K3", 64, lambda x: encode_hash_tensor(bm, x), False),
@@ -297,6 +333,7 @@ def time_composites(dev, gen, sm_count: int, clock_hz: float) -> dict:
         print(f"{name} B={b} S={s}: mismatches={mism} ms={ms:.6f} plain_ms={plain_ms:.6f} "
               f"bound_ms={k1_ms + k2_ms:.6f} (K1 bytes {k1_ms:.6f} + K2 {k2_by} {k2_ms:.6f}) "
               f"bound_share={(k1_ms + k2_ms) / ms:.4f}")
+    rows["K3_split"] = split_k3(dev, gen, bm, s)
     return rows
 
 
@@ -662,6 +699,31 @@ class Part:
         return False
 
 
+def count_codec_calls(codec, methods) -> dict:
+    """Wrap `methods` of one node's EcCodec to tally, per method, its
+    calls, the blocks they carried, the `ec_reconstruct` dispatches they
+    made (ops/telemetry.py's records) and their K1 launches."""
+    key = ("tpu_codec_dispatch_total", (("kernel", "ec_reconstruct"),
+                                        ("platform", codec._ec.platform)))
+    tally = {}
+    for method in methods:
+        row = tally[method] = {"calls": 0, "blocks": 0, "dispatches": 0, "k1_launches": 0}
+        fn = getattr(codec, method)
+
+        def wrapped(items, _fn=fn, _row=row):
+            d0, k0 = registry.counters.get(key, 0.0), gf_bitmatmul_cuda.launches
+            try:
+                return _fn(items)
+            finally:
+                _row["calls"] += 1
+                _row["blocks"] += len(items)
+                _row["dispatches"] += int(registry.counters.get(key, 0.0) - d0)
+                _row["k1_launches"] += gf_bitmatmul_cuda.launches - k0
+
+        setattr(codec, method, wrapped)
+    return tally
+
+
 def piece_files(mgr, hashes) -> dict:
     """{(hash, rank): file bytes} of every piece `mgr` holds."""
     return {(h, r): open(path, "rb").read()
@@ -782,11 +844,20 @@ async def drive_block_store(dev, root) -> dict:
             up.append(nodes[i])
             reference(nodes[i].manager, hashes)
         mgr = nodes[stopped[0]].manager
+        tally = count_codec_calls(mgr.codec, ("decode_batch", "reconstruct_batch"))
         with Part("repair", res):
             rebuilt = await drive_bulk(mgr, hashes)
         require(rebuilt == N_BLOCKS, f"repair: rebuilt {rebuilt} of {N_BLOCKS} pieces")
+        res["repair"]["codec_calls"] = tally
+        print(f"block store repair dispatches: verification (decode_batch) "
+              f"{json.dumps(tally['decode_batch'])}, rebuild (reconstruct_batch) "
+              f"{json.dumps(tally['reconstruct_batch'])}")
         if dev.type == "cuda":
             require(res["repair"]["k1_launches"] > 0, "repair never launched K1")
+            # one verification dispatch per erasure pattern (the blocks all
+            # lack rank 0: one pattern), then the grouped rebuild
+            require(res["repair"]["k1_launches"] <= 8,
+                    f"repair: {res['repair']['k1_launches']} K1 launches, want at most 8")
         after = piece_files(mgr, hashes)
         require(after == files[stopped[0]],
                 "repair: rebuilt piece files differ from the files before the wipe")
@@ -881,10 +952,17 @@ def main() -> int:
     secs = _build.build_all()
     print(f"build: wall_s={time.perf_counter() - t0:.3f} per_source="
           f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+    stack_frames = {}
     for src, log in _build.build_logs.items():
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif "registers" in line or "stack frame" in line:
+                print(f"ptxas {src} {kernel}: {line.strip()}")
+                if src == "blake3" and "stack frame" in line:
+                    stack_frames[kernel] = int(line.split("bytes stack frame")[0].split()[-1])
+    print(f"ptxas K2 stack frames (bytes): {json.dumps(stack_frames)}")
     t0 = time.perf_counter()
     lib = _native.build()
     print(f"build: host BLAKE3 {lib.name} wall_s={time.perf_counter() - t0:.3f}")
@@ -892,6 +970,12 @@ def main() -> int:
     print(f"sass blake3_small_kernel (one compression in its loop): "
           f"{ops if ops is None else json.dumps(ops)} "
           f"counted: alu_only={BLAKE3_ALU_ONLY_OPS} adds={BLAKE3_ADD_OPS}")
+    ops = sass_int_ops(_build._target("blake3"), "blake3_warp_kernel")
+    if ops is not None:
+        per = per_compression(ops)
+        print(f"sass blake3_warp_kernel (whole kernel): {json.dumps(ops)}; per compression "
+              f"({per['bodies']} bodies): "
+              f"{json.dumps({k: round(v, 2) for k, v in per.items() if k != 'bodies'})}")
     for width in (4, 8):
         ops = sass_int_ops(_build._target("gf_bitplane"), f"gf_bitplane_kernelILi{width}E")
         print(f"sass gf_bitplane_kernel<{width}> (whole kernel): "
@@ -901,7 +985,7 @@ def main() -> int:
     gen.manual_seed(SEED)
     k1 = check_k1(dev, gen)
     k2 = check_k2(dev, gen, sm_count, clock_mhz * 1e6)
-    time_composites(dev, gen, sm_count, clock_mhz * 1e6)
+    composites = time_composites(dev, gen, sm_count, clock_mhz * 1e6)
 
     gf_bitmatmul_cuda.launches = 0
     blake3_batch.launches = 0
@@ -954,9 +1038,14 @@ def main() -> int:
             "mismatches": sum(r["mismatches"] for r in k2.values())
             + slice_res["hash_mismatches"],
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
-            "ms": main_k2["ms"], "plain_ms": main_k2["plain_ms"],
+            "ms": main_k2["ms"], "graph_ms": main_k2["graph_ms"],
+            "replaced_design_ms": main_k2["old_ms"],
+            "replaced_design_graph_ms": main_k2["old_graph_ms"],
+            "plain_ms": main_k2["plain_ms"],
             "bound_ms": main_k2["bound_ms"], "bound_by": main_k2["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "stack_frame_bytes": stack_frames,
+            "k3_ms": composites["K3"]["ms"], "k3_over_k1_plus_k2":
+                composites["K3"]["ms"] / composites["K3_split"]["k1_plus_k2"]["ms"],
         },
         {
             "name": "mesh_fanout", "route": "cuda (K1 per entry)",

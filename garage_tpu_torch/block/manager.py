@@ -1368,14 +1368,17 @@ class BlockManager:
 
                 await reap(leftovers, log=logger, what="ec-get piece fetch")
 
-    def _verify_gathered(self, hash32: bytes, pieces: dict[int, bytes], blen: int):
-        """Reject reconstruction inputs whose decoded block doesn't match
-        the content hash — otherwise one corrupt surviving piece would be
-        laundered into freshly rebuilt pieces."""
-        if blake2sum(self.codec.decode(dict(pieces), blen)) != hash32:
-            raise Error(
-                f"block {hash32.hex()[:16]}: gathered pieces are corrupt"
-            )
+    def _verify_gathered(
+        self, items: list[tuple[bytes, dict[int, bytes], int]]
+    ) -> list[bool]:
+        """Which reconstruction inputs `(hash, pieces, block_len)` decode
+        to a block matching their content hash: one `decode_batch` (one
+        device dispatch per erasure pattern), then the hashes.  A
+        mismatch must be rejected — otherwise one corrupt surviving piece
+        would be laundered into freshly rebuilt pieces.  Blocking: run it
+        in a worker thread, never on the event loop."""
+        plain = self.codec.decode_batch([(dict(p), blen) for _h, p, blen in items])
+        return [blake2sum(d) == h for (h, _p, _b), d in zip(items, plain)]
 
     def ec_ranks_of(self, hash32: bytes) -> list[int]:
         """THIS node's piece ranks across ALL active layout versions,
@@ -1405,8 +1408,14 @@ class BlockManager:
         blen, pieces = await self.gather_pieces(
             hash32, self.codec.min_pieces, prio=PRIO_BACKGROUND, exclude_self=True
         )
-        self._verify_gathered(hash32, pieces, blen)
-        rec = self.codec.reconstruct_pieces(pieces, missing, blen)
+        # both the verifying decode and the rebuild are device dispatches
+        # (or long native-codec runs): off the event loop
+        (ok,) = await asyncio.to_thread(self._verify_gathered, [(hash32, pieces, blen)])
+        if not ok:
+            raise Error(f"block {hash32.hex()[:16]}: gathered pieces are corrupt")
+        rec = await asyncio.to_thread(
+            self.codec.reconstruct_pieces, pieces, missing, blen
+        )
         for r in missing:
             await self.write_block_local(
                 hash32, wrap_piece(blen, rec[r]), False, piece=r
@@ -1438,7 +1447,6 @@ class BlockManager:
                         h, self.codec.min_pieces, prio=PRIO_BACKGROUND,
                         exclude_self=True,
                     )
-                    self._verify_gathered(h, pieces, blen)
                     return (h, rank, pieces, blen)
                 except Error as e:
                     logger.warning(
@@ -1449,13 +1457,30 @@ class BlockManager:
                     return None
 
         gathered = await asyncio.gather(*[gather_one(h, r) for h, r in todo])
-        batch = [g for g in gathered if g is not None]
+        gathered = [g for g in gathered if g is not None]
+        if not gathered:
+            return 0
+        # worker-thread hops: the verification of every gathered block
+        # (one decode dispatch per erasure pattern) and the grouped
+        # reconstruction are device dispatches + host fetches (or long
+        # native-codec runs) — inline they would stall the event loop for
+        # the whole repair batch, exactly what the codec batcher already
+        # avoids on the encode side
+        ok = await asyncio.to_thread(
+            self._verify_gathered, [(h, p, blen) for h, _r, p, blen in gathered]
+        )
+        batch = []
+        for g, good in zip(gathered, ok):
+            if good:
+                batch.append(g)
+                continue
+            logger.warning(
+                "bulk repair: gathered pieces of %s are corrupt; queued for resync",
+                g[0].hex()[:16],
+            )
+            self.resync.queue_block(g[0])
         if not batch:
             return 0
-        # worker-thread hop: the grouped reconstruction is a device
-        # dispatch + host fetch (or a long native-codec run) — inline it
-        # would stall the event loop for the whole repair batch, exactly
-        # what the codec batcher already avoids on the encode side
         recs = await asyncio.to_thread(
             self.codec.reconstruct_batch,
             [(pieces, [rank], blen) for _h, rank, pieces, blen in batch],

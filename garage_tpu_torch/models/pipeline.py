@@ -103,13 +103,12 @@ class ScrubRepairPipeline:
         """fn: data (B, k, S) uint8 on the pipeline's device ->
         (parity (B, m, S), hashes (B, k+m, 32), scrub_stats (2,) int64).
         `nvalid` masks trailing zero-pad blocks out of the statistics."""
-        k = self.k
         enc_bitmat = self._enc_bitmat(self.device)
 
         def fwd(data: torch.Tensor, nvalid=None):
             self._check(data)
-            shards, hashes = encode_hash_tensor(enc_bitmat, data)
-            return shards[:, k:], hashes, scrub_stats(hashes, nvalid)
+            parity, hashes = encode_hash_tensor(enc_bitmat, data)
+            return parity, hashes, scrub_stats(hashes, nvalid)
 
         return fwd
 
@@ -130,13 +129,12 @@ class ScrubRepairPipeline:
         the streams are joined and the sums added on the first entry's
         device.  Returns the entries' parity and hash slices (on their
         devices) and stats [nvalid, fold]."""
-        k = self.k
         bitmats = [self._enc_bitmat(dev) for dev in mesh.devices]
 
         def one(_dev, bm, x, valid):
             self._check(x)
-            shards, hashes = encode_hash_tensor(bm, x)
-            return shards[:, k:], hashes, scrub_bit_sums(hashes, valid)
+            parity, hashes = encode_hash_tensor(bm, x)
+            return parity, hashes, scrub_bit_sums(hashes, valid)
 
         def step(parts: list[torch.Tensor], nvalid: int):
             per = parts[0].shape[0]

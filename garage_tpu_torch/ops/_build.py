@@ -1,14 +1,17 @@
 """Build and bind the hand-written CUDA kernels (`garage_tpu_torch/csrc`).
 
-Each `csrc/<name>.cu` has a plain C interface and compiles on its own,
-at first use, into `build/kernels/<name>-<digest>.so` at the repository
-root (gitignored), with
+Each `csrc/<name>.cu` (and the tools' yardstick sources in `SOURCES`)
+has a plain C interface and compiles on its own, at first use, into
+`build/kernels/<name>-<digest>.so` at the repository root (gitignored),
+with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
 and is loaded with `ctypes`.  The digest covers the source and the
-flags, so an edited kernel is rebuilt and a built one is reused.
+flags, so an edited kernel is rebuilt and a built one is reused; the
+compiler's output (ptxas registers and stack frames) is kept beside it
+as `<name>-<digest>.log` and read into `build_logs` either way.
 `build_all()` starts one nvcc per source, all together.  A failed build
 raises `KernelBuildError` with the compiler's output: nothing falls back
 to the plain versions.
@@ -51,9 +54,24 @@ SIGNATURES = {
                               I64, I64, P],
     },
     "blake3": {
+        # (device, x0, q0, x0_batch_stride, x0_row_stride,
+        #  x1, q1, x1_batch_stride, x1_row_stride, batch, row_len,
+        #  scratch, out, stream)
+        "blake3_rows": [I32, P, I64, I64, I64, P, I64, I64, I64, I64, I64,
+                        P, P, P],
+        # (row_len) -> 32-bit scratch words per row
+        "blake3_scratch_words": [I64],
+    },
+    # the design K2 replaced (one thread block per row), kept as the
+    # yardstick `tools/k2_compare.py` and chip_smoke.py time it against
+    "blake3_block_per_row": {
         # (device, x, row_len, n_rows, out, stream)
         "blake3_rows": [I32, P, I64, I64, P, P],
     },
+}
+# source of each library: csrc/<name>.cu unless named here
+SOURCES = {
+    "blake3_block_per_row": CSRC.parent / "tools" / "blake3_block_per_row.cu",
 }
 
 
@@ -82,8 +100,12 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
+def source(name: str) -> Path:
+    return SOURCES.get(name, CSRC / f"{name}.cu")
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = source(name).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -113,25 +135,27 @@ def build_all(names=None) -> dict[str, float]:
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(n))]
             procs[n] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ), tmp, out)
         for n, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
-            build_logs[n] = log
             if proc.returncode != 0:
-                raise KernelBuildError(f"nvcc failed for {n}.cu:\n{log}")
+                raise KernelBuildError(f"nvcc failed for {source(n).name}:\n{log}")
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
             secs[n] = time.perf_counter() - t0
             telemetry.compile_event(n, secs[n])
         for n in todo:
+            log = _target(n).with_suffix(".log")
+            build_logs[n] = log.read_text() if log.exists() else ""
             _libs[n] = _bind(n, _target(n))
         return secs
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built at first use."""
+    """The loaded library for kernel source `name`, built at first use."""
     found = _libs.get(name)
     if found is None:
         build_all([name])

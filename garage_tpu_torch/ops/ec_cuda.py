@@ -24,7 +24,8 @@ over bit-unpacked shards, batched over blocks.  Two versions compute it:
 The matrix is an argument: encode, decode and every repair erasure
 pattern share one kernel.  `EcCuda` is the batched host API the block
 codec layer calls; `encode_hash_tensor` is the fused foreground dispatch
-(coding kernel, then BLAKE3 of all k+m pieces, on one stream);
+(coding kernel, then BLAKE3 of all k+m pieces where they lie, on one
+stream);
 `ec_apply_mesh` is the fan-out of K1 over a mesh's entries (K6, the
 reference's `ec_apply_fn_mesh`), which `EcCuda` takes for large batches
 when its mesh is wider than one entry.
@@ -40,7 +41,7 @@ import torch
 from ..parallel.mesh import Mesh, make_mesh, resolve_device
 from . import _build, gf, telemetry
 from .bucketing import bucket_batch, mesh_rows, pad_to_bucket
-from .hash_cuda import blake3_batch
+from .hash_cuda import blake3_pieces
 
 __all__ = [
     "resolve_device", "coding_state_from_numpy", "gf_bitmatmul",
@@ -135,20 +136,15 @@ gf_bitmatmul_cuda.launches = 0
 def encode_hash_tensor(
     bitmat: torch.Tensor, x: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The fused foreground dispatch: x (B, k, S) uint8 data shards ->
-    (shards (B, k+m, S) with parity in [:, k:], hashes (B, k+m, 32)).
+    """The fused foreground dispatch (the reference's `body`): x (B, k, S)
+    uint8 data shards -> (parity (B, m, S), hashes (B, k+m, 32)).
 
-    One buffer holds all k+m pieces: the data is copied into [:, :k], K1
-    writes parity into [:, k:] through its batch stride, and K2 hashes
-    the buffer viewed as (B*(k+m), S) — both on the current stream, with
-    no host synchronisation between them."""
-    b, k, s = x.shape
-    n = k + bitmat.shape[0] // 8
-    shards = torch.empty((b, n, s), dtype=torch.uint8, device=x.device)
-    shards[:, :k].copy_(x)
-    gf_bitmatmul_cuda(bitmat, shards[:, :k], out=shards[:, k:])
-    hashes = blake3_batch(shards.view(b * n, s)).view(b, n, 32)
-    return shards, hashes
+    K1 writes the parity into a contiguous tensor of its own, and K2
+    hashes the data and parity pieces where they lie (`blake3_pieces`),
+    in piece order — both on the current stream, with no host
+    synchronisation between them and no copy of the data shards."""
+    parity = gf_bitmatmul_cuda(bitmat, x)
+    return parity, blake3_pieces(x, parity)
 
 
 def ec_apply_mesh(
@@ -309,9 +305,9 @@ class EcCuda:
             with rec.transfer():
                 x = pad_to_bucket(_host_tensor(data).to(self.device), bucket)
             with rec.compute():
-                shards, hashes = encode_hash_tensor(self._enc_bitmat, x)
+                parity_d, hashes = encode_hash_tensor(self._enc_bitmat, x)
             with rec.transfer():
-                parity = shards[:b, self.k:].cpu().numpy()
+                parity = parity_d[:b].cpu().numpy()
                 hashes_np = hashes[:b].cpu().numpy()
         return parity, hashes_np
 

@@ -1,15 +1,18 @@
 """Batched BLAKE3 on the card (port of garage_tpu/ops/hash_tpu.py).
 
-`blake3_batch(x)` hashes B equal-length rows: it launches kernel K2
-(csrc/blake3.cu) for a CUDA tensor and runs the plain PyTorch version
-`blake3_batch_ref` for a CPU tensor.  Supported lengths are those of the
-reference: any multiple of 64 bytes up to one chunk (<= 1024), or a
-power-of-two number of full 1024-byte chunks; anything else raises
-`ValueError`.  Output is the official BLAKE3-256 digest of each row
-(oracle: blake3_ref.py).
+`blake3_batch(x)` hashes B equal-length rows, and `blake3_pieces(data,
+parity)` every piece of a batch of coded blocks where the pieces lie:
+each launches kernel K2 (csrc/blake3.cu) for CUDA tensors and runs the
+plain PyTorch version (`blake3_batch_ref`, `blake3_pieces_ref`) for CPU
+tensors.  Supported lengths are those of the reference: any multiple of
+64 bytes up to one chunk (<= 1024), or a power-of-two number of full
+1024-byte chunks; anything else raises `ValueError`.  Output is the
+official BLAKE3-256 digest of each row (oracle: blake3_ref.py).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -106,14 +109,65 @@ def blake3_batch_ref(x: torch.Tensor) -> torch.Tensor:
     return ((root[..., None] >> shifts) & 0xFF).to(torch.uint8).reshape(b, 32)
 
 
+def blake3_pieces_ref(data: torch.Tensor, parity: torch.Tensor) -> torch.Tensor:
+    """Plain version of `blake3_pieces`: the concatenation of data
+    (B, k, S) and parity (B, m, S), then `blake3_batch_ref` ->
+    (B, k+m, 32)."""
+    b, k, s = data.shape
+    shards = torch.cat([data, parity], dim=1)
+    return blake3_batch_ref(shards.reshape(-1, s)).view(b, k + parity.shape[1], 32)
+
+
 # --- the K2 wrapper -------------------------------------------------------------
+
+
+def _check_rows(x: torch.Tensor, strides, what: str) -> None:
+    """Rows K2 can read in place: contiguous within a row, 16-byte
+    aligned base and `strides` (bytes)."""
+    if x.stride(-1) != 1:
+        raise ValueError(f"{what}: the row (last) axis must be contiguous")
+    if x.data_ptr() % 16 or any(st % 16 for st in strides):
+        raise ValueError(f"{what}: K2 needs a 16-byte aligned base and row strides")
+
+
+@functools.cache
+def _scratch_words(length: int) -> int:
+    """32-bit scratch words K2 needs per row of `length` bytes (0: none)."""
+    return _build.lib("blake3").blake3_scratch_words(length)
+
+
+def _hash_rows(b: int, s: int, x0: torch.Tensor, q0: int, strides0,
+               x1: torch.Tensor | None = None, q1: int = 0, strides1=(0, 0)) -> torch.Tensor:
+    """Launch K2 on b batch entries of q0 rows of x0 followed by q1 rows
+    of x1 (each source's rows at `(batch, row)` byte strides) ->
+    (b * (q0 + q1), 32) digests in `(entry, row)` order, on the current
+    stream.  The scratch for rows longer than one warp's subtree is
+    allocated here."""
+    dev = x0.device
+    out = torch.empty((b * (q0 + q1), 32), dtype=torch.uint8, device=dev)
+    if out.numel() == 0:
+        return out
+    words = _scratch_words(s)
+    scratch = (torch.empty(out.shape[0] * words, dtype=torch.int32, device=dev)
+               if words else None)
+    y = x0 if x1 is None else x1
+    code = _build.lib("blake3").blake3_rows(
+        dev.index, x0.data_ptr(), q0, strides0[0], strides0[1],
+        y.data_ptr(), q1, strides1[0], strides1[1], b, s,
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(code, "blake3_rows")
+    _build.count_launch(blake3_batch)
+    return out
 
 
 def blake3_batch(x: torch.Tensor) -> torch.Tensor:
     """x (B, L) uint8 -> (B, 32) uint8 BLAKE3 digests.  A CUDA tensor
     goes through kernel K2 on the current stream (no synchronisation;
-    `blake3_batch.launches` counts the launches); a CPU tensor through
-    `blake3_batch_ref`."""
+    `blake3_batch.launches` counts the launches); its rows must be
+    contiguous, with a 16-byte aligned base and row stride.  A CPU
+    tensor goes through `blake3_batch_ref`."""
     if x.dim() != 2 or x.dtype != torch.uint8:
         raise ValueError(f"expected a (B, L) uint8 tensor, got {tuple(x.shape)} {x.dtype}")
     n_chunks_for_len(x.shape[1])
@@ -121,20 +175,37 @@ def blake3_batch(x: torch.Tensor) -> torch.Tensor:
         return blake3_batch_ref(x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("blake3_batch needs contiguous rows")
-    if x.data_ptr() % 16:
-        raise ValueError("blake3_batch needs a 16-byte aligned base")
-    out = torch.empty((x.shape[0], 32), dtype=torch.uint8, device=x.device)
-    if x.shape[0] == 0:
-        return out
-    code = _build.lib("blake3").blake3_rows(
-        x.device.index, x.data_ptr(), x.shape[1], x.shape[0], out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(code, "blake3_rows")
-    _build.count_launch(blake3_batch)
-    return out
+    _check_rows(x, (x.stride(0),), "blake3_batch")
+    return _hash_rows(x.shape[0], x.shape[1], x, 1, (x.stride(0), x.stride(0)))
+
+
+def blake3_pieces(data: torch.Tensor, parity: torch.Tensor) -> torch.Tensor:
+    """Digests of every piece of a batch of coded blocks, read where the
+    pieces lie: data (B, k, S) and parity (B, m, S) uint8 -> (B, k+m, 32),
+    row j of entry b being piece j of block b (data, then parity).  One
+    K2 launch for a CUDA pair (counted on `blake3_batch.launches`); each
+    source needs contiguous rows with 16-byte aligned base and strides.
+    A CPU pair goes through `blake3_pieces_ref`."""
+    if data.dim() != 3 or parity.dim() != 3:
+        raise ValueError(f"expected (B, q, S) tensors, got {tuple(data.shape)}, "
+                         f"{tuple(parity.shape)}")
+    (b, k, s), m = data.shape, parity.shape[1]
+    if (b, s) != (parity.shape[0], parity.shape[2]):
+        raise ValueError(f"data {tuple(data.shape)} and parity {tuple(parity.shape)} "
+                         f"differ in batch or piece length")
+    if data.dtype != torch.uint8 or parity.dtype != torch.uint8:
+        raise ValueError(f"expected uint8, got {data.dtype}, {parity.dtype}")
+    if data.device != parity.device:
+        raise ValueError("data and parity must share a device")
+    n_chunks_for_len(s)
+    if data.device.type == "cpu":
+        return blake3_pieces_ref(data, parity)
+    if data.device.type != "cuda":
+        raise ValueError(f"unsupported device {data.device}")
+    _check_rows(data, data.stride()[:2], "data")
+    _check_rows(parity, parity.stride()[:2], "parity")
+    return _hash_rows(b, s, data, k, data.stride()[:2], parity, m,
+                      parity.stride()[:2]).view(b, k + m, 32)
 
 
 blake3_batch.launches = 0

@@ -307,3 +307,12 @@ def codec_snapshot(r=None) -> dict:
         "compile": compile_by_cache,
         "lanes": lanes,
     }
+
+
+def probe_failure_summary() -> None:
+    """The newest banked device-probe failure verdict, for the digest's
+    `tpuProbe` key.  This package banks no probe profile, so there is
+    never one: always None, the reference's answer for a box whose probe
+    never failed (its version reads TPU probe profiles, which are not
+    this package's)."""
+    return None

@@ -1,7 +1,10 @@
 """garage_tpu_torch batched BLAKE3 against the JAX package: the plain
 version (what `blake3_batch` runs for a CPU tensor) against
 `garage_tpu.ops.hash_tpu.blake3_batch` and the pure-Python oracle, the
-same rejected lengths, and the same `blake3_supported_len`."""
+same rejected lengths, and the same `blake3_supported_len`; and
+`blake3_pieces` (the hashes of every data and parity piece of a batch,
+read where the pieces lie) against the reference's hash of their
+concatenation."""
 
 import numpy as np
 import pytest
@@ -12,7 +15,9 @@ from garage_tpu.ops.ec_tpu import blake3_supported_len as jax_supported
 from garage_tpu.ops.hash_tpu import blake3_batch as jax_blake3_batch
 from garage_tpu_torch.ops import blake3_ref as tref
 from garage_tpu_torch.ops.ec_cuda import blake3_supported_len
-from garage_tpu_torch.ops.hash_cuda import blake3_batch, blake3_batch_ref, n_chunks_for_len
+from garage_tpu_torch.ops.hash_cuda import (
+    blake3_batch, blake3_batch_ref, blake3_pieces, n_chunks_for_len,
+)
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)
@@ -62,3 +67,24 @@ def test_pure_python_oracle_copy_matches_reference(n):
 
 def test_blake3_batch_empty_batch():
     assert blake3_batch(torch.zeros((0, 2048), dtype=torch.uint8)).shape == (0, 32)
+
+
+@pytest.mark.parametrize("b,k,m,s", [(3, 4, 2, 1024), (2, 8, 3, 2048), (1, 2, 1, 64), (0, 2, 1, 64)])
+def test_blake3_pieces_matches_reference(b, k, m, s):
+    rng = np.random.default_rng(b * 100 + s)
+    buf = rng.integers(0, 256, (b, k + m + 1, s), dtype=np.uint8)
+    data, parity = buf[:, 1:k + 1], buf[:, k + 1:]  # strided views of one buffer
+    got = blake3_pieces(torch.from_numpy(data), torch.from_numpy(parity)).numpy()
+    assert got.shape == (b, k + m, 32)
+    want = jax_blake3_batch(np.concatenate([data, parity], 1).reshape(-1, s)) if b else \
+        np.zeros((0, 32), np.uint8)
+    assert np.array_equal(got.reshape(-1, 32), want)
+
+
+@pytest.mark.parametrize("data,parity", [
+    ((2, 4, 1024), (3, 2, 1024)), ((2, 4, 1024), (2, 2, 2048)), ((2, 4, 96), (2, 2, 96)),
+    ((2, 1024), (2, 1024)),
+])
+def test_blake3_pieces_rejects_mismatched_sources(data, parity):
+    with pytest.raises(ValueError):
+        blake3_pieces(torch.zeros(data, dtype=torch.uint8), torch.zeros(parity, dtype=torch.uint8))

@@ -18,7 +18,9 @@ from garage_tpu_torch.ops.blake3_ref import blake3
 from garage_tpu_torch.ops.ec_cuda import (
     EcCuda, coding_state_from_numpy, encode_hash_tensor, gf_bitmatmul, gf_bitmatmul_cuda,
 )
-from garage_tpu_torch.ops.hash_cuda import blake3_batch, blake3_batch_ref
+from garage_tpu_torch.ops.hash_cuda import (
+    blake3_batch, blake3_batch_ref, blake3_pieces, blake3_pieces_ref,
+)
 from garage_tpu_torch.parallel.mesh import make_mesh
 
 # the suite runs in parallel worker processes: one torch thread each keeps
@@ -78,18 +80,56 @@ def test_blake3_kernel_matches_plain(dev, length):
     assert bytes(got[0].cpu().numpy()) == blake3(bytes(x_np[0]))
 
 
+# (rows, chunks per row): one row; rows of 2, 4 and 32 chunks (several
+# rows per warp, and one warp-sized subtree per row) with row counts that
+# leave the last warp partly empty; the main path's 704 x 128 chunks; 1 MiB
+# rows (1024 chunks: 32 subtrees per row, finished by the last warp) and
+# 2 MiB rows (64 subtrees: the in-place reduction of groups of 32)
+@pytest.mark.parametrize("rows,chunks", [
+    (1, 2), (1, 128), (17, 2), (9, 4), (3, 32), (5, 32), (704, 128), (3, 1024), (2, 2048),
+])
+def test_blake3_warp_kernel_shapes(dev, rows, chunks):
+    rng = np.random.default_rng(rows * 10_000 + chunks)
+    x = torch.from_numpy(rng.integers(0, 256, (rows, chunks * 1024), dtype=np.uint8)).to(dev)
+    h0 = blake3_batch.launches
+    got = blake3_batch(x)
+    assert blake3_batch.launches == h0 + 1
+    assert torch.equal(got, blake3_batch_ref(x))
+    got_np, x_np = got.cpu().numpy(), x.cpu().numpy()
+    for i in sorted({0, rows - 1}):
+        assert bytes(got_np[i]) == blake3(bytes(x_np[i])), f"row {i}"
+
+
+@pytest.mark.parametrize("b,k,m,s", [(3, 8, 3, 4096), (2, 4, 2, 131072), (5, 8, 3, 1024),
+                                     (2, 2, 1, 1 << 20)])
+def test_blake3_pieces_reads_strided_views(dev, b, k, m, s):
+    """Data and parity as strided views of one buffer with a spare piece
+    between them, and as separate tensors: one launch, the digests of the
+    concatenation in piece order."""
+    rng = np.random.default_rng(b * s + k)
+    buf = torch.from_numpy(rng.integers(0, 256, (b, k + m + 1, s), dtype=np.uint8)).to(dev)
+    data, parity = buf[:, :k], buf[:, k + 1:]
+    want = blake3_pieces_ref(data, parity)
+    for d, p in ((data, parity), (data.contiguous(), parity.contiguous())):
+        h0 = blake3_batch.launches
+        got = blake3_pieces(d, p)
+        assert blake3_batch.launches == h0 + 1
+        assert torch.equal(got, want)
+    last = bytes(parity[-1, -1].cpu().numpy())
+    assert bytes(got[-1, -1].cpu().numpy()) == blake3(last)
+
+
 def test_fused_encode_hash_and_codec_on_card(dev):
     k, m, s = 8, 3, 4096
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.integers(0, 256, (6, k, s), dtype=np.uint8)).to(dev)
     bm = coding_state_from_numpy(gf.cauchy_parity_matrix(k, m), dev)["bitmat"]
     g0, h0 = gf_bitmatmul_cuda.launches, blake3_batch.launches
-    shards, hashes = encode_hash_tensor(bm, x)
+    parity, hashes = encode_hash_tensor(bm, x)
     assert (gf_bitmatmul_cuda.launches, blake3_batch.launches) == (g0 + 1, h0 + 1)
-    parity = gf_bitmatmul(bm, x)
-    assert torch.equal(shards[:, k:], parity)
-    plain = blake3_batch_ref(torch.cat([x, parity], 1).reshape(-1, s))
-    assert torch.equal(hashes.reshape(-1, 32), plain)
+    want = gf_bitmatmul(bm, x)
+    assert torch.equal(parity, want)
+    assert torch.equal(hashes, blake3_pieces_ref(x, want))
 
     codec = EcCodec(k, m, device=dev)
     block = bytes(rng.integers(0, 256, k * s - 17, dtype=np.uint8))
@@ -111,6 +151,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         blake3_batch(flat[8:].view(3, 64))  # base not 16-byte aligned
     with pytest.raises(ValueError):
         blake3_batch(torch.zeros((1, 3 * 1024), dtype=torch.uint8, device=dev))
+    flat = torch.zeros(2 * 5 * 1024 + 8, dtype=torch.uint8, device=dev)
+    rows = flat[8:].view(2, 5, 1024)  # base not 16-byte aligned
+    with pytest.raises(ValueError):
+        blake3_pieces(rows[:, :3], rows[:, 3:])
+    rows = flat[:-8].view(2, 5, 1024)
+    with pytest.raises(ValueError):
+        blake3_pieces(rows[:, :3], rows[:, 3:].cpu())  # two devices
 
 
 def test_shared_card_mesh_matches_single_device(dev):

@@ -34,10 +34,7 @@ FORBIDDEN_TOP = ("jax", "jaxlib", "garage_tpu")
 DEFERRED = {
     ("garage_tpu_torch/db/open.py", "garage_tpu_torch.db.log_engine"),
     ("garage_tpu_torch/db/open.py", "garage_tpu_torch.db.native_engine"),
-    ("garage_tpu_torch/rpc/system.py", "garage_tpu_torch.rpc.telemetry_digest"),
-    ("garage_tpu_torch/rpc/transition.py", "garage_tpu_torch.rpc.telemetry_digest"),
-    ("garage_tpu_torch/rpc/transition.py", "garage_tpu_torch.utils.flight"),
-    ("garage_tpu_torch/rpc/transition.py", "garage_tpu_torch.block.durability"),
+    ("garage_tpu_torch/rpc/telemetry_digest.py", "garage_tpu_torch.api.s3.canary"),
 }
 
 
