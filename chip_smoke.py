@@ -6,9 +6,10 @@
 Builds the two hand-written kernels from garage_tpu_torch/csrc with nvcc
 (and the host BLAKE3 library with g++), holds each against its plain
 PyTorch version on the card at the shapes the main path gives it
-(tolerance 0: integer math), then drives the erasure-coded data plane
-and the block store through the entry points a storage node calls, at
-EC(8,3) with 1 MiB blocks:
+(tolerance 0: integer math), then drives the erasure-coded data plane,
+the block store through the entry points a storage node calls, and a
+cluster of whole nodes through the S3 API, at EC(8,3) with 1 MiB
+blocks:
 
   1. device line: name, count, `nvidia-smi` name and power limit
   2. build: both kernels (and the replaced K2 design kept as a
@@ -60,10 +61,29 @@ EC(8,3) with 1 MiB blocks:
      bytes through K2, and resync; each part's wall time, K1/K2
      launches and dispatch breakdown; then a cProfile of 64 more PUTs
      and GETs
-  8. one JSON line listing each kernel: launches in phase 5 (in phase 6
-     for the fan-out; `launches_block_store` in phase 7), mismatches,
-     times and bound (K2's with its graph time, the replaced design's
-     times, its stack frames and K3 against K1 + K2)
+  8. the S3 cluster, with the launch counters set to 0 just before it:
+     11 nodes of this package in one process (tools/s3_cluster.py), each
+     a whole `Garage` (tables, model, block store) with sqlite metadata,
+     metadata replicated 3 times, EC(8,3) with each node's EcCodec on the
+     card, S3 served by nodes 0 and 1, driven through the port's own
+     `S3Client`: a key through `GarageHelper` and a bucket; 64 objects
+     of 4 MiB from 8 concurrent clients over both endpoints (ETags the
+     bodies' MD5) and 256 inline objects of 1 KiB; one multipart upload
+     of 8 parts of 8 MiB (`ListParts` checked, then completed); one
+     SSE-C object; `ListObjectsV2` by prefix, 100 keys a page; every
+     object read back through the other endpoint and one ranged GET
+     across a block boundary; one node stopped (the lowest data rank
+     that serves no endpoint) and every 4 MiB object read again; one
+     `DeleteObject` and its 404; 8 sampled blocks' piece files against
+     the plain versions on the card.  Each part's wall, K1/K2/K3
+     launches, kernel seconds and dispatches; MiB/s; the codec batch
+     sizes under S3 traffic; every response status (2xx but the one
+     404); a cProfile of 16 more 4 MiB PUTs and GETs
+  9. one JSON line listing each kernel: launches in phase 5 (in phase 6
+     for the fan-out; `launches_block_store` in phase 7, `launches_s3`
+     in phase 8), mismatches, times and bound (K2's with its graph
+     time, the replaced design's times, its stack frames and K3 against
+     K1 + K2)
 
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero without it, as does a machine without CUDA.
@@ -72,7 +92,9 @@ non-zero without it, as does a machine without CUDA.
 from __future__ import annotations
 
 import asyncio
+import base64
 import cProfile
+import hashlib
 import json
 import os
 import pstats
@@ -81,12 +103,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from garage_tpu_torch import _native
+from garage_tpu_torch.api.s3.client import S3Client, S3Error
 from garage_tpu_torch.block.codec.ec import EcCodec
 from garage_tpu_torch.block.codec_batch import CodecBatcher
 from garage_tpu_torch.block.repair import ScrubWorker
@@ -108,6 +132,9 @@ from garage_tpu_torch.tools.block_cluster import (
 )
 from garage_tpu_torch.tools.k2_compare import (
     BLAKE3_ADD_OPS, BLAKE3_ALU_ONLY_OPS, blake3_bound_ms, old_k2,
+)
+from garage_tpu_torch.tools.s3_cluster import (
+    make_key, make_s3_cluster, stop_s3_cluster, stop_s3_node,
 )
 from garage_tpu_torch.tools.sass import per_compression, sass_int_ops
 from garage_tpu_torch.tools.timing import graph_ms, time_ms
@@ -674,14 +701,15 @@ def breakdown_delta(before: dict, after: dict) -> dict:
 
 
 class Part:
-    """Wall time, K1/K2 launches and dispatch breakdown of one part of
-    phase 7, printed when the part ends."""
+    """Wall time, K1/K2/K3 launches, kernel seconds and dispatch
+    breakdown of one part of phases 7 and 8, printed when the part ends."""
 
-    def __init__(self, name: str, results: dict):
-        self.name, self.results = name, results
+    def __init__(self, name: str, results: dict, label: str = "block store"):
+        self.name, self.results, self.label = name, results, label
 
     def __enter__(self):
         self.k1, self.k2 = gf_bitmatmul_cuda.launches, blake3_batch.launches
+        self.k3 = encode_hash_tensor.launches
         self.disp = dispatch_breakdown()
         self.t0 = time.perf_counter()
         return self
@@ -690,12 +718,16 @@ class Part:
         if exc_type is not None:
             return False
         wall = time.perf_counter() - self.t0
+        disp = breakdown_delta(self.disp, dispatch_breakdown())
         row = {"wall_s": wall, "k1_launches": gf_bitmatmul_cuda.launches - self.k1,
                "k2_launches": blake3_batch.launches - self.k2,
-               "dispatches": breakdown_delta(self.disp, dispatch_breakdown())}
+               "k3_launches": encode_hash_tensor.launches - self.k3,
+               "kernel_s": sum(d.get("kernel_s", 0.0) for d in disp.values()),
+               "dispatches": disp}
         self.results[self.name] = row
-        print(f"block store {self.name}: wall_s={wall:.6f} K1={row['k1_launches']} "
-              f"K2={row['k2_launches']} dispatch={json.dumps(row['dispatches'])}")
+        print(f"{self.label} {self.name}: wall_s={wall:.6f} K1={row['k1_launches']} "
+              f"K2={row['k2_launches']} K3={row['k3_launches']} "
+              f"kernel_s={row['kernel_s']:.6f} dispatch={json.dumps(disp)}")
         return False
 
 
@@ -916,10 +948,13 @@ async def profile_host(nodes, rng, getter: int) -> None:
     prof.disable()
     wall = time.perf_counter() - t0
     require(got == more, "profiled GET: blocks differ from what was PUT")
+    print_profile(prof, f"block store host profile (64 PUTs + 64 GETs, wall_s={wall:.6f}")
+
+
+def print_profile(prof: cProfile.Profile, head: str) -> None:
+    """The 15 functions with the most own time."""
     stats = pstats.Stats(prof)
-    total = stats.total_tt
-    print(f"block store host profile (64 PUTs + 64 GETs, wall_s={wall:.6f}, "
-          f"profiled_s={total:.6f}), top functions by own time:")
+    print(f"{head}, profiled_s={stats.total_tt:.6f}), top functions by own time:")
     rows = sorted(stats.stats.items(), key=lambda kv: kv[1][2], reverse=True)[:15]
     for (path, line, fn), (_cc, ncalls, tt, ct, _callers) in rows:
         print(f"  {tt:.6f}s own {ct:.6f}s cum {ncalls} calls "
@@ -930,6 +965,357 @@ def run_block_store(dev) -> dict:
     root = Path(tempfile.mkdtemp(prefix="block-store-", dir=SCRATCH))
     try:
         return asyncio.run(asyncio.wait_for(drive_block_store(dev, root), BLOCK_STORE_TIMEOUT_S))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# --- phase 8: the S3 cluster -----------------------------------------------------
+
+S3_ENDPOINTS = 2  # nodes 0 and 1 serve S3
+S3_CLIENTS = 8
+N_BIG, BIG_BLOCKS = 64, 4  # 64 objects of 4 blocks (4 MiB)
+N_SMALL, SMALL = 256, 1024  # under INLINE_THRESHOLD: inline in the object table
+MPU_PARTS, PART_BLOCKS = 8, 8  # one upload of 8 parts of 8 blocks (8 MiB)
+N_PROFILED = 16
+N_SAMPLED = 8
+S3_BUCKET = "smoke-bucket"
+S3_TIMEOUT_S = 600  # a stuck part fails the phase instead of the call
+# All 11 nodes share one process and one event loop, so a request waits
+# on the whole cluster's work and the loop's lag is the whole cluster's:
+# at the default request p99 target (1 s) and loop-lag p99 limit (0.5 s)
+# the shedding ladder climbs to shedding writes (on an H100 host, a
+# loop-lag p99 of 0.5-8 s took it to "shed-write" and a DeleteObject got
+# 503 SlowDown).  The limits are raised, not the ladder switched off.
+S3_EXTRA = {"admin": {"slo_latency_p99_target_msec": 60000.0},
+            "overload": {"loop_lag_p99_msec": 60000.0}}
+
+
+class CountingClient(S3Client):
+    """The port's S3 client, tallying the status of every response."""
+
+    def __init__(self, endpoint: str, key_id: str, secret: str, statuses: Counter):
+        super().__init__(endpoint, key_id, secret)
+        self.statuses = statuses
+
+    async def _req(self, *a, **kw):
+        st, h, data = await super()._req(*a, **kw)
+        self.statuses[st] += 1
+        return st, h, data
+
+
+def record_batches(nodes, part: list[str]) -> dict:
+    """Wrap every node's codec batcher lanes to record the size of each
+    dispatch, per lane, under the part named by `part[0]` at the time."""
+    sizes: dict = {}
+    for x in nodes:
+        batcher = x.garage.block_manager.batcher
+        for lane in (batcher._encode, batcher._decode):
+            def wrapped(items, _fn=lane.dispatch_fn, _name=lane.name):
+                sizes.setdefault(part[0], {}).setdefault(_name, []).append(len(items))
+                return _fn(items)
+
+            lane.dispatch_fn = wrapped
+    return sizes
+
+
+def batch_summary(sizes: list[int]) -> dict:
+    return {"dispatches": len(sizes), "blocks": sum(sizes), "max": max(sizes, default=0),
+            "mean": sum(sizes) / len(sizes) if sizes else 0.0,
+            "hist": dict(sorted(Counter(sizes).items()))}
+
+
+def sampled_pieces(nodes, block: bytes) -> tuple[list[bytes], list[bytes]]:
+    """(pieces in rank order, header hashes) of one block, read back from
+    the piece files in every node's data directory (a stopped node's
+    files included)."""
+    h = blake2sum(block)
+    found = {}
+    for x in nodes:
+        for rank, (path, compressed) in x.garage.block_manager.local_pieces(h).items():
+            require(not compressed, f"piece {rank} of {h.hex()[:16]} is compressed")
+            found[rank] = open(path, "rb").read()
+    require(sorted(found) == list(range(K + M)),
+            f"block {h.hex()[:16]}: piece files of ranks {sorted(found)} on disk")
+    return [found[r][44:] for r in range(K + M)], [found[r][12:44] for r in range(K + M)]
+
+
+def check_pieces(dev, nodes, blocks: list[bytes]) -> int:
+    """The sampled blocks' pieces on disk against the plain versions on
+    the card: the data pieces are the block's bytes, the parity pieces
+    equal `gf_bitmatmul` of the data pieces, and every header hash equals
+    `blake3_batch_ref` of its piece.  Returns the pieces checked."""
+    s = BLOCK // K
+    bm = coding_state_from_numpy(gf.cauchy_parity_matrix(K, M), dev)["bitmat"]
+    pieces, heads = zip(*(sampled_pieces(nodes, b) for b in blocks))
+    flat = torch.from_numpy(np.frombuffer(
+        b"".join(p for ps in pieces for p in ps), dtype=np.uint8).copy()).to(dev)
+    require(flat.numel() == len(blocks) * (K + M) * s, "sampled pieces: wrong lengths")
+    flat = flat.view(len(blocks), K + M, s)
+    for i, b in enumerate(blocks):
+        require(b"".join(pieces[i][:K]) == b, f"sampled block {i}: data pieces differ")
+    parity = gf_bitmatmul(bm, flat[:, :K].contiguous())
+    mism, _err = diff(parity, flat[:, K:])
+    require(mism == 0, f"sampled blocks: {mism} parity bytes differ from gf_bitmatmul")
+    want = blake3_batch_ref(flat.view(-1, s)).cpu().numpy()
+    got = np.frombuffer(b"".join(h for hs in heads for h in hs), dtype=np.uint8).reshape(-1, 32)
+    bad = int((want != got).any(axis=1).sum())
+    require(bad == 0, f"sampled blocks: {bad} header hashes differ from blake3_batch_ref")
+    return len(blocks) * (K + M)
+
+
+async def drive_s3(dev, root) -> dict:
+    """Phase 8's main path: 11 nodes of this package, each a whole
+    `Garage` with its EcCodec(8, 3) on the card, S3 on the first two,
+    driven through the port's own `S3Client`.  The launch counters are
+    set to 0 by the caller just before."""
+    rng = np.random.default_rng(SEED + 8)
+    big_len, part_len = BIG_BLOCKS * BLOCK, PART_BLOCKS * BLOCK
+    big = [rng.integers(0, 256, big_len, dtype=np.uint8).tobytes() for _ in range(N_BIG)]
+    small = [rng.integers(0, 256, SMALL, dtype=np.uint8).tobytes() for _ in range(N_SMALL)]
+    parts = [rng.integers(0, 256, part_len, dtype=np.uint8).tobytes() for _ in range(MPU_PARTS)]
+    keys = [rng.bytes(32) for _ in range(N_NODES)]  # node ids from the seed
+    res: dict = {}
+    statuses: Counter = Counter()
+    label = "s3"
+    nodes = await make_s3_cluster(root, N_NODES, mode=f"ec:{K}:{M}", block_size=BLOCK,
+                                  engine="sqlite", device=str(dev), s3_nodes=S3_ENDPOINTS,
+                                  keys=keys, extra=S3_EXTRA)
+    part = [None]
+    batches = record_batches(nodes, part)
+    clients: list[CountingClient] = []
+    other: list[CountingClient] = []
+    down: set[int] = set()
+    try:
+        part[0] = "setup"
+        key_id, secret = await make_key(nodes[0].garage, "smoke-key")
+        eps = [x.endpoint for x in nodes[:S3_ENDPOINTS]]
+        # client c talks to endpoint c % 2; other[c] to the other endpoint
+        clients = [CountingClient(eps[c % S3_ENDPOINTS], key_id, secret, statuses)
+                   for c in range(S3_CLIENTS)]
+        other = [CountingClient(eps[(c + 1) % S3_ENDPOINTS], key_id, secret, statuses)
+                 for c in range(S3_CLIENTS)]
+        await clients[0].create_bucket(S3_BUCKET)
+        require(S3_BUCKET in await other[0].list_buckets(), "the bucket is not listed")
+        print(f"s3 setup: {N_NODES} nodes EC({K},{M}), block {BLOCK} B, sqlite, meta rf 3, "
+              f"S3 on nodes 0 and 1; key {key_id} through GarageHelper, bucket {S3_BUCKET}")
+
+        big_keys = [f"big/{i:03d}" for i in range(N_BIG)]
+        small_keys = [f"small/{i:04d}" for i in range(N_SMALL)]
+        etags: dict[str, str] = {}
+
+        async def put_share(c: int, items):
+            for k, body in items[c::S3_CLIENTS]:
+                etags[k] = await clients[c].put_object(S3_BUCKET, k, body)
+
+        part[0] = "put"
+        with Part("put", res, label):
+            await asyncio.gather(*[put_share(c, list(zip(big_keys, big)))
+                                   for c in range(S3_CLIENTS)])
+        with Part("put_small", res, label):
+            await asyncio.gather(*[put_share(c, list(zip(small_keys, small)))
+                                   for c in range(S3_CLIENTS)])
+        bad = [k for k, b in zip(big_keys + small_keys, big + small)
+               if etags[k] != hashlib.md5(b).hexdigest()]
+        require(not bad, f"PUT: ETags of {bad[:4]} are not the MD5 of the body")
+        if dev.type == "cuda":
+            require(res["put"]["k3_launches"] > 0, "the S3 PUTs never launched K3")
+        require(res["put_small"]["k1_launches"] == 0 and not res["put_small"]["dispatches"],
+                "the inline PUTs reached the codec")
+
+        part[0] = "multipart"
+        mpu_key = "mpu/object"
+        with Part("multipart", res, label):
+            uid = await clients[0].create_multipart_upload(S3_BUCKET, mpu_key)
+            part_etags = await asyncio.gather(*[
+                clients[i % S3_CLIENTS].upload_part(S3_BUCKET, mpu_key, uid, i + 1, p)
+                for i, p in enumerate(parts)])
+            listed = await other[0].list_parts(S3_BUCKET, mpu_key, uid)
+            await clients[1].complete_multipart_upload(
+                S3_BUCKET, mpu_key, uid, list(enumerate(part_etags, 1)))
+        require([(p["part"], p["etag"], p["size"]) for p in listed]
+                == [(i + 1, hashlib.md5(p).hexdigest(), part_len) for i, p in enumerate(parts)],
+                f"ListParts: {listed}")
+        mpu_body = b"".join(parts)
+
+        # one object under a customer key (SSE-C): AES-GCM on the host,
+        # the ciphertext's blocks through the codec
+        part[0] = "sse_c"
+        sse_key = rng.bytes(32)
+        sse = {"x-amz-server-side-encryption-customer-algorithm": "AES256",
+               "x-amz-server-side-encryption-customer-key": base64.b64encode(sse_key).decode(),
+               "x-amz-server-side-encryption-customer-key-md5":
+                   base64.b64encode(hashlib.md5(sse_key).digest()).decode()}
+        sse_body = big[-1][::-1]
+        with Part("sse_c", res, label):
+            st, _h, data = await clients[0]._req("PUT", f"/{S3_BUCKET}/sse/object",
+                                                  body=sse_body, headers=dict(sse))
+            clients[0]._check(st, data)
+            got_sse = await other[0].get_object(S3_BUCKET, "sse/object", headers=dict(sse))
+        require(got_sse == sse_body, "SSE-C: the object read back differs")
+
+        part[0] = "list"
+        with Part("list", res, label):
+            listed_keys = {}
+            for prefix in ("big/", "small/", "mpu/", "sse/"):
+                token, pages = None, 0
+                while True:
+                    page = await other[pages % S3_CLIENTS].list_objects_v2(
+                        S3_BUCKET, prefix=prefix, max_keys=100, continuation_token=token)
+                    listed_keys.update({e["key"]: (e["size"], e["etag"]) for e in page["keys"]})
+                    pages += 1
+                    token = page["next_token"]
+                    if not page["truncated"]:
+                        break
+        want_keys = {**{k: (big_len, etags[k]) for k in big_keys},
+                     **{k: (SMALL, etags[k]) for k in small_keys}}
+        require({k: v for k, v in listed_keys.items() if k not in (mpu_key, "sse/object")}
+                == want_keys,
+                "ListObjectsV2 did not return every key with its size and ETag")
+        require(mpu_key in listed_keys and listed_keys[mpu_key][0] == len(mpu_body),
+                "ListObjectsV2: the multipart object is missing")
+
+        async def get_share(c: int, ks, via):
+            return [(k, await via[c].get_object(S3_BUCKET, k)) for k in ks[c::S3_CLIENTS]]
+
+        part[0] = "get"
+        with Part("get", res, label):
+            # each object through the endpoint it was not PUT through
+            got = await asyncio.gather(*[get_share(c, big_keys, other) for c in range(S3_CLIENTS)])
+            got_mpu = await clients[0].get_object(S3_BUCKET, mpu_key)
+            lo = BLOCK - 100
+            ranged = await other[1].get_object(S3_BUCKET, big_keys[0],
+                                               range_=f"bytes={lo}-{BLOCK + 99}")
+        body_of = dict(zip(big_keys, big))
+        bad = [k for kb in got for k, b in kb if b != body_of[k]]
+        require(not bad, f"GET: {bad[:4]} differ from what was PUT")
+        require(got_mpu == mpu_body, "GET: the multipart object differs")
+        require(ranged == big[0][lo:BLOCK + 100], "ranged GET across a block boundary differs")
+        with Part("get_small", res, label):
+            got = await asyncio.gather(*[get_share(c, small_keys, other)
+                                         for c in range(S3_CLIENTS)])
+        body_of = dict(zip(small_keys, small))
+        require(all(b == body_of[k] for kb in got for k, b in kb), "GET: inline objects differ")
+
+        # one node stopped, chosen by rank: the lowest data rank that
+        # serves no S3 endpoint (every block has the same rank order)
+        layout = nodes[0].garage.layout_manager.history.current()
+        hashes = [blake2sum(b[j * BLOCK:(j + 1) * BLOCK]) for b in big for j in range(BIG_BLOCKS)]
+        order = layout.nodes_of(hashes[0])
+        require(all(layout.nodes_of(h) == order for h in hashes[:64]),
+                "the blocks do not share one rank order")
+        index_of = {x.garage.node_id: x.index for x in nodes}
+        by_rank = [index_of[n] for n in order]
+        victim_rank = next(r for r in range(K) if by_rank[r] >= S3_ENDPOINTS)
+        victim = by_rank[victim_rank]
+        await stop_s3_node(nodes[victim])
+        down.add(victim)
+        part[0] = "degraded_get"
+        with Part("degraded_get", res, label):
+            # through the endpoint each object was PUT through: its read
+            # cache holds the other endpoint's objects, not these
+            got = await asyncio.gather(*[get_share(c, big_keys, clients)
+                                         for c in range(S3_CLIENTS)])
+        body_of = dict(zip(big_keys, big))
+        bad = [k for kb in got for k, b in kb if b != body_of[k]]
+        require(not bad, f"degraded GET: {bad[:4]} differ from what was PUT")
+        if dev.type == "cuda":
+            require(res["degraded_get"]["k1_launches"] > 0, "the degraded GETs never launched K1")
+        print(f"s3 degraded get: node {victim} (rank {victim_rank}) stopped, {N_BIG} objects "
+              f"of {big_len} B byte-exact through their PUT endpoints")
+
+        part[0] = "delete"
+        with Part("delete", res, label):
+            await clients[0].delete_object(S3_BUCKET, small_keys[0])
+            try:
+                await other[0].get_object(S3_BUCKET, small_keys[0])
+                require(False, "GET of a deleted key succeeded")
+            except S3Error as e:
+                require(e.status == 404 and e.code == "NoSuchKey",
+                        f"GET of a deleted key: {e.status} {e.code}")
+
+        part[0] = "pieces"
+        sample = [big[i][j * BLOCK:(j + 1) * BLOCK] for i, j in zip(
+            range(0, N_BIG, N_BIG // N_SAMPLED), [n % BIG_BLOCKS for n in range(N_SAMPLED)])]
+        checked = check_pieces(dev, nodes, sample)
+        print(f"s3 pieces: {len(sample)} sampled blocks, {checked} piece files: data pieces "
+              f"are the blocks' bytes, parity equals gf_bitmatmul, every header hash equals "
+              f"blake3_batch_ref, on {dev}")
+
+        codes = {st: n for st, n in sorted(statuses.items())}
+        require(all(200 <= st < 300 for st in codes if st != 404) and codes.get(404) == 1,
+                f"response statuses {codes}: want 2xx, and one 404")
+        mib = 1 << 20
+        put_bytes, get_bytes = N_BIG * big_len, N_BIG * big_len + len(mpu_body)
+        res["rates_mib_s"] = {
+            "put": put_bytes / mib / res["put"]["wall_s"],
+            "put_small_objects_per_s": N_SMALL / res["put_small"]["wall_s"],
+            "multipart": len(mpu_body) / mib / res["multipart"]["wall_s"],
+            "get": get_bytes / mib / res["get"]["wall_s"],
+            "degraded_get": put_bytes / mib / res["degraded_get"]["wall_s"],
+        }
+        res["batches"] = {p: {lane: batch_summary(v) for lane, v in lanes.items()}
+                          for p, lanes in batches.items()}
+        res["statuses"] = codes
+        print(f"s3 rates: {json.dumps({k: round(v, 6) for k, v in res['rates_mib_s'].items()})}")
+        print(f"s3 codec batches: {json.dumps(res['batches'])}")
+        print(f"s3 statuses: {json.dumps(codes)}")
+        res["layers"] = layer_latencies()
+        print(f"s3 layer latencies (count, mean_s, p99_s as a bucket bound): "
+              f"{json.dumps(res['layers'])}")
+        part[0] = "profile"
+        await profile_s3(dev, clients, other, rng)
+    finally:
+        for c in clients + other:
+            await c.close()
+        await stop_s3_cluster([x for i, x in enumerate(nodes) if i not in down])
+    return res
+
+
+LAYER_FAMILIES = ("api_s3_request_duration", "table_get_request_duration",
+                  "table_put_request_duration", "table_range_request_duration")
+
+
+def layer_latencies() -> dict:
+    """Per label set of the S3 API's and the tables' request-duration
+    histograms (the S3 method; the table), over the phase so far:
+    count, mean seconds and p99 (the upper bound of its bucket)."""
+    out: dict = {}
+    for (name, labels), (cnt, total, _b) in sorted(registry.durations.items()):
+        if name in LAYER_FAMILIES and cnt:
+            label = ",".join(v for _k, v in labels)
+            out.setdefault(name, {})[label] = [cnt, round(total / cnt, 6),
+                                               registry.quantile(name, labels, 0.99)]
+    return out
+
+
+async def profile_s3(dev, clients, other, rng) -> None:
+    """Where the host's time goes: 16 more 4 MiB PUTs from 8 clients and
+    their GETs through the other endpoint, under cProfile.  Outside the
+    timed parts; its launches count with the phase."""
+    more = [(f"profiled/{i:02d}", rng.integers(0, 256, BIG_BLOCKS * BLOCK,
+                                               dtype=np.uint8).tobytes())
+            for i in range(N_PROFILED)]
+
+    async def share(c: int):
+        for k, b in more[c::S3_CLIENTS]:
+            await clients[c].put_object(S3_BUCKET, k, b)
+        return [(b, await other[c].get_object(S3_BUCKET, k)) for k, b in more[c::S3_CLIENTS]]
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    got = await asyncio.gather(*[share(c) for c in range(S3_CLIENTS)])
+    prof.disable()
+    wall = time.perf_counter() - t0
+    require(all(a == b for pairs in got for a, b in pairs), "profiled GET differs")
+    print_profile(prof, f"s3 host profile ({N_PROFILED} PUTs + {N_PROFILED} GETs of "
+                        f"{BIG_BLOCKS * BLOCK} B, wall_s={wall:.6f}")
+
+
+def run_s3(dev) -> dict:
+    root = Path(tempfile.mkdtemp(prefix="s3-", dir=SCRATCH))
+    try:
+        return asyncio.run(asyncio.wait_for(drive_s3(dev, root), S3_TIMEOUT_S))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1014,6 +1400,21 @@ def main() -> int:
           f"wall_s {json.dumps({k: round(v['wall_s'], 6) for k, v in store.items()})} "
           f"on {card}")
 
+    gf_bitmatmul_cuda.launches = 0
+    blake3_batch.launches = 0
+    encode_hash_tensor.launches = 0
+    s3 = run_s3(dev)
+    s3_launches = {"gf": gf_bitmatmul_cuda.launches, "blake3": blake3_batch.launches,
+                   "k3": encode_hash_tensor.launches}
+    require(s3_launches["k3"] > 0, "the S3 cluster never launched K3")
+    require(s3_launches["gf"] > 0, "the S3 cluster never launched K1")
+    require(s3_launches["blake3"] > 0, "the S3 cluster never launched K2")
+    parts = {k: v for k, v in s3.items() if "wall_s" in v}
+    print(f"s3: {N_NODES} nodes EC({K},{M}), launches K1 {s3_launches['gf']} "
+          f"K2 {s3_launches['blake3']} K3 {s3_launches['k3']}; wall_s "
+          f"{json.dumps({k: round(v['wall_s'], 6) for k, v in parts.items()})}; kernel_s "
+          f"{json.dumps({k: round(v['kernel_s'], 6) for k, v in parts.items()})} on {card}")
+
     main_k1 = k1["ec83_encode"]
     main_k2 = k2[(64 * (K + M), 131072)]
     kernels = [
@@ -1023,6 +1424,7 @@ def main() -> int:
             "replaces": "garage_tpu/ops/ec_tpu.py:116",
             "launches": launches["gf"],
             "launches_block_store": store_launches["gf"],
+            "launches_s3": s3_launches["gf"],
             "mismatches": sum(r["mismatches"] for r in k1.values()),
             "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
             "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
@@ -1035,6 +1437,7 @@ def main() -> int:
             "replaces": "garage_tpu/ops/hash_tpu.py:93",
             "launches": launches["blake3"],
             "launches_block_store": store_launches["blake3"],
+            "launches_s3": s3_launches["blake3"], "k3_launches_s3": s3_launches["k3"],
             "mismatches": sum(r["mismatches"] for r in k2.values())
             + slice_res["hash_mismatches"],
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
@@ -1051,7 +1454,7 @@ def main() -> int:
             "name": "mesh_fanout", "route": "cuda (K1 per entry)",
             "source": "garage_tpu_torch/ops/ec_cuda.py",
             "replaces": "garage_tpu/ops/ec_tpu.py:228",
-            "launches": mesh_run["launches"]["gf"],
+            "launches": mesh_run["launches"]["gf"], "launches_s3": 0,
             "mismatches": mesh_run["mismatches"] + fanout["mismatches"],
             "max_abs_err": fanout["max_abs_err"],
             "ms": fanout["ms"], "plain_ms": fanout["plain_ms"],

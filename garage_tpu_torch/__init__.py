@@ -1,6 +1,6 @@
-"""garage_tpu_torch — garage-tpu's erasure-coded data plane, and the block
-store and cluster plane around it, on PyTorch and CUDA (NVIDIA Hopper,
-sm_90a).
+"""garage_tpu_torch — garage-tpu's erasure-coded data plane, and the S3
+serving path, block store and cluster plane around it, on PyTorch and
+CUDA (NVIDIA Hopper, sm_90a).
 
 The `ec:k:m` block mode splits each block into k data shards, computes m
 GF(2^8) Cauchy parity shards, and BLAKE3-hashes every one of the k+m
@@ -18,11 +18,23 @@ kernels are held to.
 
 Layer map (module paths mirror `garage_tpu/`, so each counterpart is
 found under the same name):
+  api/s3/, api/common/  the S3 API: S3ApiServer, SigV4, objects (the
+                        pipelined PUT, the streamed GET), multipart,
+                        listing, SSE-C, S3Client, the canary prober;
+                        api/overload.py (admission)
+  model/                Garage — the composition root (a node: tables,
+                        block store, workers; `[tpu]` picks the codec's
+                        device); the object, version, block_ref, mpu,
+                        bucket, key and K2V tables
+  table/                the replicated CRDT table engine: quorum reads and
+                        writes, Merkle anti-entropy, tombstone GC,
+                        coalesced inserts
   block/manager.py      BlockManager — piece placement, quorum PUT, the EC
                         read pipeline, bulk repair; block/resync.py,
                         block/repair.py (scrub: piece hashes through K2),
                         block/repair_plan.py (the batched repair planner)
-  rpc/, net/, db/       cluster layout, peering, quorum RPC; the encrypted
+  rpc/, net/, db/       cluster layout, peering, quorum RPC, discovery,
+                        the shedding ladder; the encrypted
                         TCP mesh (the reference's wire protocol); the
                         metadata db (memory, sqlite)
   _native/              host BLAKE3 in C++ (single pieces), built by g++
@@ -41,8 +53,9 @@ found under the same name):
   ops/gf.py, ops/blake3_ref.py  numpy / pure-Python oracles
   utils/                serde, CRDTs, config, workers, tracing, metrics
   tools/                kernel timing on the card (CUDA events, graph
-                        replay), the K1 variant comparison, and an
-                        in-process cluster of block-store nodes
+                        replay), the K1 variant comparison, and
+                        in-process clusters of block-store nodes and of
+                        whole S3 nodes
 
 Import rule: this package imports `torch` and `numpy` and never `jax`,
 and it imports nothing from `garage_tpu` — not even its JAX-free
@@ -51,7 +64,8 @@ tests import both packages, to hold one against the other.
 
 Device rule: entry points take an explicit `device` that defaults to
 "cuda" and raise when CUDA is absent; the CPU runs only when a caller
-asks for it (`device="cpu"`), and then through the plain versions.
+asks for it (`device="cpu"`; for a node's `Garage`, `[tpu] enable =
+false`), and then through the plain versions.
 """
 
 __version__ = "0.1.0"

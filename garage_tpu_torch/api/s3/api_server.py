@@ -1,0 +1,572 @@
+"""S3 API server: routing + auth + bucket-level handlers.
+
+Reference src/api/s3/api_server.rs + router.rs.  Path-style addressing
+(`/bucket/key`) and vhost-style when a `root_domain` is configured.
+Every request is SigV4-verified against the key table, then checked
+against the key's bucket permissions.
+"""
+
+from __future__ import annotations
+
+import logging
+import urllib.parse
+
+from aiohttp import web
+
+from ...model.key_table import Key
+from ...utils.error import Error
+from ..common.error import (
+    ApiError,
+    BadRequest,
+    BucketNotEmpty,
+    Forbidden,
+    NoSuchBucket,
+    NotImplementedError_,
+)
+from ..common.error import error_xml
+from ..common.signature import check_payload, verify_request
+from .list import handle_list_objects_v1, handle_list_objects_v2
+from .objects import (
+    handle_delete_object,
+    handle_get_object,
+    handle_put_object,
+)
+from .xml_util import xml_doc
+
+logger = logging.getLogger("garage.api.s3")
+
+UNIMPLEMENTED_SUBRESOURCES = {
+    "acl", "tagging", "versioning", "policy", "logging", "notification",
+    "replication", "encryption", "requestPayment", "accelerate", "analytics",
+    "inventory", "metrics", "ownershipControls", "publicAccessBlock",
+    "intelligent-tiering", "object-lock", "legal-hold", "retention", "torrent",
+}
+
+
+class S3ApiServer:
+    def __init__(self, garage):
+        self.garage = garage
+        self.region = garage.config.s3_api.s3_region
+        self.root_domain = garage.config.s3_api.root_domain
+        self.app = web.Application(client_max_size=64 * 1024 * 1024 * 1024)
+        self.app.router.add_route("*", "/{tail:.*}", self._entry)
+        # streamed responses (multi-block GETs) prepare inside the
+        # handler, before _entry can stamp headers — this signal fires
+        # at prepare time, while the request span is still open
+        self.app.on_response_prepare.append(self._stamp_request_id)
+        self.runner: web.AppRunner | None = None
+
+    async def _stamp_request_id(self, request, response) -> None:
+        from ...utils.tracing import tracer
+
+        s = tracer.current()
+        if s is not None and "x-amz-request-id" not in response.headers:
+            response.headers["x-amz-request-id"] = s.trace_id.hex()
+
+    async def start(self, host: str, port: int) -> None:
+        self.runner = web.AppRunner(self.app, access_log=None)
+        await self.runner.setup()
+        site = web.TCPSite(self.runner, host, port)
+        await site.start()
+        logger.info("s3 api listening on %s:%d", host, port)
+
+    async def stop(self) -> None:
+        if self.runner:
+            await self.runner.cleanup()
+
+    # --- request entry --------------------------------------------------------
+
+    def _parse_target(self, request) -> tuple[str, str]:
+        """-> (bucket, key); vhost-style if host matches root_domain."""
+        path = urllib.parse.unquote(request.raw_path.split("?")[0])
+        host = request.headers.get("Host", "").split(":")[0]
+        if self.root_domain:
+            # label-boundary match: "my-s3.example.com" must NOT match a
+            # root_domain of "s3.example.com"
+            rd = self.root_domain.lstrip(".")
+            if host != rd and host.endswith("." + rd):
+                bucket = host[: -(len(rd) + 1)]
+                if bucket:
+                    return bucket, path.lstrip("/")
+        parts = path.lstrip("/").split("/", 1)
+        bucket = parts[0]
+        key = parts[1] if len(parts) > 1 else ""
+        return bucket, key
+
+    async def _get_secret(self, key_id: str):
+        k = await self.garage.key_table.get(key_id.encode(), b"")
+        if k is None or k.is_deleted():
+            return None
+        return k.secret()
+
+    def _slow_down(self, request, ticket) -> web.Response:
+        """503 SlowDown with a Retry-After hint (api/overload.py shed
+        verdict).  Deliberately OUTSIDE request_metrics: an intentional
+        shed must not count as an S3 request or burn the availability
+        SLO budget (the shedding controller reads that budget — see
+        overload.py module docstring)."""
+        from ..common.error import SlowDown
+
+        err = SlowDown(ticket.reason or "please reduce your request rate")
+        return web.Response(
+            status=err.status,
+            text=error_xml(err, request.path),
+            content_type="application/xml",
+            headers={"Retry-After": str(max(1, int(ticket.retry_after)))},
+        )
+
+    async def _entry(self, request: web.Request) -> web.StreamResponse:
+        # overload-control plane: admission happens FIRST, before any
+        # SigV4 work — the point is to turn excess load away at the
+        # cheapest possible place.  _entry is the single choke point.
+        ticket = None
+        ctl = getattr(self.garage, "overload", None)
+        if ctl is not None:
+            bucket_name, obj_key = self._parse_target(request)
+            ticket = await ctl.admit(request, bucket_name, obj_key)
+            if not ticket.admitted:
+                return self._slow_down(request, ticket)
+        try:
+            return await self._admitted_entry(
+                request, lead_secs=ticket.queued_secs if ticket else 0.0
+            )
+        finally:
+            if ticket is not None:
+                ticket.release()
+
+    async def _admitted_entry(
+        self, request: web.Request, lead_secs: float = 0.0
+    ) -> web.StreamResponse:
+        # traffic observatory (rpc/traffic.py): every ADMITTED request
+        # feeds the hot-object/op-mix sketches — shed 503s never reach
+        # here, consistent with the overload plane's "sheds are not
+        # traffic" invariant.  Runs in the finally so errored requests
+        # (they are traffic too) still count.
+        import time
+
+        from ...rpc.traffic import observatory
+
+        t0 = time.perf_counter()
+        resp: web.StreamResponse | None = None
+        try:
+            resp = await self._instrumented_entry(request, lead_secs)
+            return resp
+        finally:
+            if observatory.enabled:
+                try:
+                    bucket_name, obj_key = self._parse_target(request)
+                    # canary probes are synthetic: recording them would
+                    # make an idle cluster report the canary bucket as
+                    # its hot bucket and bake probe noise into the
+                    # replayable workload profile (the prober has its
+                    # own canary_* telemetry families)
+                    if bucket_name != self.garage.config.admin.canary_bucket:
+                        observatory.record_http(
+                            request.method, bucket_name, obj_key,
+                            request.query,
+                            self._moved_bytes(request, resp),
+                            time.perf_counter() - t0,
+                        )
+                except Exception as e:  # noqa: BLE001
+                    logger.debug("traffic record failed: %r", e)
+            try:
+                self._record_tenant(
+                    request, resp, time.perf_counter() - t0, lead_secs
+                )
+            except Exception as e:  # noqa: BLE001
+                logger.debug("tenant record failed: %r", e)
+
+    def _record_tenant(
+        self, request, resp, secs: float, lead_secs: float
+    ) -> None:
+        """Tenant observatory feed (rpc/tenant.py): per-AUTHENTICATED-
+        key accounting, post-SigV4.  The admission controller admitted
+        on the CLAIMED key id (the only identity available pre-auth);
+        here the verified identity is known, so mismatches become the
+        `api_admission_claimed_mismatch_total` signal and only the
+        authenticated id is ever attributed usage."""
+        from ...rpc.tenant import class_for
+        from ...rpc.tenant import observatory as tenant_obs
+        from ...utils.metrics import registry
+        from ..overload import AdmissionController
+
+        if not tenant_obs.enabled:
+            return
+        # stashed by _handle right after verify_request; absent when
+        # auth never completed (failed signature, PostObject form path)
+        auth_id = request.get("tenant_key_id")
+        if not auth_id:
+            return
+        claimed = AdmissionController.claimed_key_id(request)
+        if claimed and claimed != auth_id:
+            # spoof attempts are a visible counter, never a tenant row
+            registry.incr("api_admission_claimed_mismatch_total", ())
+            tenant_obs.record_mismatch()
+        bucket_name, obj_key = self._parse_target(request)
+        if bucket_name == self.garage.config.admin.canary_bucket:
+            return  # synthetic probe traffic (same carve-out as traffic)
+        from ...rpc.traffic import classify_op
+
+        bytes_in = (
+            int(request.content_length or 0)
+            if request.method in ("PUT", "POST")
+            else 0
+        )
+        bytes_out = (
+            int(resp.content_length or 0)
+            if resp is not None and request.method in ("GET", "HEAD")
+            else 0
+        )
+        tenant_obs.record_request(
+            auth_id,
+            classify_op(request.method, obj_key, request.query),
+            bytes_in,
+            bytes_out,
+            secs,
+            is_err=resp is None or resp.status >= 500,
+            queued_secs=lead_secs,
+            tenant_class=class_for(self.garage.config, auth_id),
+        )
+
+    @staticmethod
+    def _moved_bytes(request, resp) -> int:
+        """Object-payload bytes a request moved, best effort: uploads
+        report the request body, downloads the response body (streamed
+        GETs set Content-Length before prepare)."""
+        if request.method in ("PUT", "POST"):
+            return int(request.content_length or 0)
+        if resp is not None and resp.content_length:
+            return int(resp.content_length)
+        return 0
+
+    async def _instrumented_entry(
+        self, request: web.Request, lead_secs: float = 0.0
+    ) -> web.StreamResponse:
+        from ...utils.metrics import registry, request_metrics
+        from ...utils.tracing import tracer
+
+        # correlate client-observed latency (and failures) with the
+        # node's slow-request flight recorder (/v1/debug/slow) and
+        # exported traces: the request id IS the trace id.  Captured
+        # inside the request span so error responses carry it too —
+        # the failed slow PUT is exactly the one worth joining.
+        trace_hex: str | None = None
+
+        def rid(resp: web.StreamResponse) -> web.StreamResponse:
+            if trace_hex and not resp.prepared:
+                resp.headers["x-amz-request-id"] = trace_hex
+            return resp
+
+        def err(status: int) -> None:
+            # status-labelled error counter: the SLO tracker and the
+            # cluster telemetry digest count code >= 500 against the
+            # availability budget (4xx are the client's errors)
+            registry.incr(
+                "api_s3_error_counter",
+                (("method", request.method), ("code", str(status))),
+            )
+
+        try:
+            with request_metrics(
+                "api_s3", request.method, "api:s3",
+                lead_secs=lead_secs, path=request.path,
+            ):
+                s = tracer.current()
+                trace_hex = s.trace_id.hex() if s is not None else None
+                return rid(await self._handle(request))
+        except ApiError as e:
+            if e.status == 304:
+                return rid(web.Response(status=304))
+            err(e.status)
+            return rid(web.Response(
+                status=e.status,
+                text=error_xml(e, request.path),
+                content_type="application/xml",
+            ))
+        except Error as e:
+            msg = str(e)
+            if "not found" in msg:
+                err(404)
+                return rid(web.Response(
+                    status=404,
+                    text=error_xml(NoSuchBucket(msg), request.path),
+                    content_type="application/xml",
+                ))
+            logger.exception("internal error")
+            err(500)
+            return rid(web.Response(
+                status=500,
+                text=error_xml(ApiError(msg), request.path),
+                content_type="application/xml",
+            ))
+        except Exception as e:  # noqa: BLE001
+            logger.exception("unhandled API error")
+            err(500)
+            return rid(web.Response(
+                status=500,
+                text=error_xml(ApiError(repr(e)), request.path),
+                content_type="application/xml",
+            ))
+
+    async def _handle(self, request: web.Request) -> web.StreamResponse:
+        # PostObject: browser form uploads authenticate via a signed policy
+        # document in the form fields, not an Authorization header
+        if (
+            request.method == "POST"
+            and "Authorization" not in request.headers
+            and request.content_type == "multipart/form-data"
+        ):
+            from .post_object import handle_post_object
+
+            bucket_name, key = self._parse_target(request)
+            if bucket_name and not key:
+                return await handle_post_object(self, bucket_name, request)
+
+        from ...utils.latency import phase_span
+
+        with phase_span("auth"):
+            ctx = await verify_request(request, self._get_secret, self.region)
+            api_key: Key = await self.garage.helper.get_key(ctx.key_id)
+        # stash the AUTHENTICATED identity on the request mapping: the
+        # streaming-body proxy created below only rebinds a local, so
+        # this survives into _admitted_entry's tenant-accounting finally
+        request["tenant_key_id"] = ctx.key_id
+        bucket_name, key = self._parse_target(request)
+        method = request.method
+
+        for sub in UNIMPLEMENTED_SUBRESOURCES:
+            if sub in request.query:
+                # sole implemented carve-out: bucket-level GET ?versioning
+                # (reference implements exactly GetBucketVersioning and
+                # 501s every other versioning/tagging/acl operation)
+                if sub == "versioning" and method == "GET" and not key:
+                    continue
+                raise NotImplementedError_(f"subresource {sub!r} not implemented")
+
+        if not bucket_name:
+            if method == "GET":
+                return await self._list_buckets(api_key)
+            raise BadRequest("no bucket specified")
+
+        if (
+            method == "PUT"
+            and not key
+            and not any(s in request.query for s in ("website", "cors", "lifecycle"))
+        ):
+            return await self._create_bucket(bucket_name, api_key, request, ctx)
+
+        with phase_span("index_read"):
+            bucket_id = await self.garage.helper.resolve_bucket(
+                bucket_name, api_key
+            )
+        perm = api_key.bucket_permissions(bucket_id)
+        q = request.query
+
+        from . import bucket_config as bc
+        from .copy_delete import handle_copy_object, handle_delete_objects
+        from . import multipart as mp
+
+        if not key:
+            # bucket-level ops
+            if method == "HEAD":
+                _require(perm.allow_read or perm.allow_write or perm.allow_owner)
+                return web.Response(status=200)
+            if method == "GET":
+                _require(perm.allow_read)
+                for sub, h in (
+                    ("website", bc.handle_get_website),
+                    ("cors", bc.handle_get_cors),
+                    ("lifecycle", bc.handle_get_lifecycle),
+                ):
+                    if sub in q:
+                        bucket = await self.garage.helper.get_bucket(bucket_id)
+                        return await h(self.garage, bucket, request)
+                if "uploads" in q:
+                    return await mp.handle_list_multipart_uploads(
+                        self.garage, bucket_id, bucket_name, request
+                    )
+                if "location" in q:
+                    return web.Response(
+                        text=xml_doc("LocationConstraint", [("", self.region)]),
+                        content_type="application/xml",
+                    )
+                if "versioning" in q:
+                    # buckets are unversioned: empty configuration, like
+                    # the reference (src/api/s3/bucket.rs:34-45)
+                    return web.Response(
+                        text=xml_doc("VersioningConfiguration", []),
+                        content_type="application/xml",
+                    )
+                if q.get("list-type") == "2":
+                    return await handle_list_objects_v2(
+                        self.garage, bucket_id, bucket_name, request
+                    )
+                return await handle_list_objects_v1(
+                    self.garage, bucket_id, bucket_name, request
+                )
+            if method == "PUT":
+                _require(perm.allow_owner)
+                for sub, h in (
+                    ("website", bc.handle_put_website),
+                    ("cors", bc.handle_put_cors),
+                    ("lifecycle", bc.handle_put_lifecycle),
+                ):
+                    if sub in q:
+                        bucket = await self.garage.helper.get_bucket(bucket_id)
+                        return await h(self.garage, bucket, request, ctx=ctx)
+                raise BadRequest("unsupported bucket PUT")
+            if method == "POST":
+                if "delete" in q:
+                    _require(perm.allow_write)
+                    return await handle_delete_objects(self.garage, bucket_id, request, ctx=ctx)
+                raise BadRequest("unsupported bucket POST")
+            if method == "DELETE":
+                for sub, h in (
+                    ("website", bc.handle_delete_website),
+                    ("cors", bc.handle_delete_cors),
+                    ("lifecycle", bc.handle_delete_lifecycle),
+                ):
+                    if sub in q:
+                        _require(perm.allow_owner)
+                        bucket = await self.garage.helper.get_bucket(bucket_id)
+                        return await h(self.garage, bucket, request)
+                _require(perm.allow_owner)
+                try:
+                    await self.garage.helper.delete_bucket(bucket_id)
+                except Error as e:
+                    if "not empty" in str(e):
+                        raise BucketNotEmpty(str(e)) from e
+                    raise
+                return web.Response(status=204)
+            raise BadRequest(f"unsupported bucket method {method}")
+
+        # aws-chunked streaming bodies decode (and verify per-chunk
+        # signatures) transparently before the put pipelines see them
+        if ctx.streaming is not None and method == "PUT" and key:
+            from ..common.streaming import ChunkedDecoder
+
+            sctx = None if ctx.streaming == "unsigned" else ctx.streaming
+            request = _StreamingRequestProxy(request, ChunkedDecoder(request.content, sctx))
+
+        # object-level ops
+        if method == "POST":
+            _require(perm.allow_write)
+            if "uploads" in q:
+                return await mp.handle_create_multipart_upload(
+                    self.garage, bucket_id, key, request
+                )
+            if "uploadId" in q:
+                return await mp.handle_complete_multipart_upload(
+                    self.garage, bucket_id, key, request, ctx=ctx
+                )
+            raise BadRequest("unsupported object POST")
+        if method == "PUT":
+            _require(perm.allow_write)
+            if "partNumber" in q:
+                if "x-amz-copy-source" in request.headers:
+                    return await mp.handle_upload_part_copy(
+                        self.garage, self.garage.helper, api_key,
+                        bucket_id, key, request, ctx=ctx,
+                    )
+                return await mp.handle_upload_part(
+                    self.garage, bucket_id, key, request, ctx=ctx
+                )
+            if "x-amz-copy-source" in request.headers:
+                return await handle_copy_object(
+                    self.garage, self.garage.helper, api_key, bucket_id, key, request
+                )
+            return await handle_put_object(
+                self.garage, bucket_id, key, request, ctx=ctx
+            )
+        if method == "GET":
+            _require(perm.allow_read)
+            if "uploadId" in q:
+                return await mp.handle_list_parts(self.garage, bucket_id, key, request)
+            return await handle_get_object(self.garage, bucket_id, key, request)
+        if method == "HEAD":
+            _require(perm.allow_read)
+            return await handle_get_object(
+                self.garage, bucket_id, key, request, head_only=True
+            )
+        if method == "DELETE":
+            _require(perm.allow_write)
+            if "uploadId" in q:
+                return await mp.handle_abort_multipart_upload(
+                    self.garage, bucket_id, key, request
+                )
+            return await handle_delete_object(self.garage, bucket_id, key)
+        raise BadRequest(f"unsupported method {method}")
+
+    # --- bucket handlers ------------------------------------------------------
+
+    async def _list_buckets(self, api_key: Key) -> web.Response:
+        params = api_key.params()
+        buckets = []
+        if params:
+            for bid, perm_obj in params.authorized_buckets.items():
+                from ...model.permission import BucketKeyPerm
+
+                if not BucketKeyPerm.from_obj(perm_obj).is_any():
+                    continue
+                try:
+                    b = await self.garage.helper.get_bucket(bytes(bid))
+                except Error:
+                    continue
+                for name, v in b.params().aliases.items():
+                    if v:
+                        buckets.append((name, b.params().creation_date))
+        from .xml_util import http_iso as _http_iso
+
+        children = [
+            ("Owner", [("ID", api_key.key_id), ("DisplayName", api_key.key_id)]),
+            (
+                "Buckets",
+                [
+                    ("Bucket", [("Name", n), ("CreationDate", _http_iso(cd))])
+                    for n, cd in sorted(buckets)
+                ],
+            ),
+        ]
+        return web.Response(
+            text=xml_doc("ListAllMyBucketsResult", children),
+            content_type="application/xml",
+        )
+
+    async def _create_bucket(self, name: str, api_key: Key, request, ctx) -> web.Response:
+        body = await request.read()
+        await check_payload(body, ctx)
+        params = api_key.params()
+        try:
+            existing = await self.garage.helper.resolve_bucket(name, api_key)
+        except Error:
+            existing = None
+        if existing is not None:
+            perm = api_key.bucket_permissions(existing)
+            if perm.allow_owner:  # idempotent re-create by the owner
+                return web.Response(status=200, headers={"Location": f"/{name}"})
+            from ..common.error import BucketAlreadyExists
+
+            raise BucketAlreadyExists(f"bucket {name!r} already exists")
+        if params is None or not params.allow_create_bucket.get():
+            raise Forbidden("this key cannot create buckets")
+        bucket_id = await self.garage.helper.create_bucket(name)
+        await self.garage.helper.set_bucket_key_permissions(
+            bucket_id, api_key.key_id, True, True, True
+        )
+        return web.Response(status=200, headers={"Location": f"/{name}"})
+
+
+def _require(cond: bool) -> None:
+    if not cond:
+        raise Forbidden("access denied for this operation")
+
+
+class _StreamingRequestProxy:
+    """A request whose body reads through the aws-chunked decoder."""
+
+    def __init__(self, request, decoder):
+        self._request = request
+        self.content = decoder
+
+    def __getattr__(self, name):
+        return getattr(self._request, name)

@@ -1,0 +1,825 @@
+"""Object read/write handlers: the S3 hot paths.
+
+PutObject (reference src/api/s3/put.rs): chunk the body at block_size;
+objects <= INLINE_THRESHOLD live inline in the object entry; larger
+objects get an Uploading version, blocks stored with bounded parallelism
+(PUT_BLOCKS_MAX_PARALLEL in flight), block refs + version entries written
+as we go, then the version flips to Complete.  A failure marks the
+version Aborted (cleanup cascade deletes blocks).
+
+GetObject (reference src/api/s3/get.rs): resolve the newest complete
+version; inline data answers immediately; block lists stream with
+prefetch of the next block while the current one is sent; Range requests
+slice the block list.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import hashlib
+import logging
+import os
+
+from aiohttp import web
+
+from ...block.manager import INLINE_THRESHOLD
+from ...net.message import PRIO_HIGH
+from ...model.s3.block_ref_table import BlockRef
+from ...model.s3.object_table import Object, ObjectVersion
+from ...model.s3.version_table import Version
+from ...utils.aio import reap
+from ...utils.crdt import CrdtMap
+from ...utils.data import blake2sum, gen_uuid
+from ...utils.latency import mark_op, phase_span
+from ...utils.time_util import now_msec
+from ..common.error import (
+    ApiError,
+    InvalidRange,
+    NoSuchKey,
+    PreconditionFailed,
+)
+
+logger = logging.getLogger("garage.api.s3")
+
+PUT_BLOCKS_MAX_PARALLEL = 3  # reference put.rs:42
+
+SAVED_HEADERS = [
+    "content-type",
+    "content-encoding",
+    "content-language",
+    "content-disposition",
+    "cache-control",
+    "expires",
+]
+
+
+def extract_meta_headers(request) -> list[list[str]]:
+    """Object metadata persisted with a version: the standard
+    SAVED_HEADERS plus every x-amz-meta-* user-metadata header
+    (reference put.rs:668-677).  aws-chunked is transport framing, not
+    object metadata — the stored body is the decoded plaintext."""
+    headers = [
+        [h, request.headers[h_orig]]
+        for h in SAVED_HEADERS
+        for h_orig in [next((k for k in request.headers if k.lower() == h), None)]
+        if h_orig
+    ]
+    headers = [
+        [h, ",".join(t for t in v.split(",") if t.strip() != "aws-chunked")]
+        for h, v in headers
+        if not (h == "content-encoding" and v.strip() == "aws-chunked")
+    ]
+    for k, v in request.headers.items():
+        kl = k.lower()
+        if kl.startswith("x-amz-meta-"):
+            headers.append([kl, v])
+    return headers
+
+
+async def _read_at_least(body, n: int) -> bytes:
+    """Read until >= n bytes or EOF (StreamReader.read(n) may return any
+    currently-buffered amount — trusting one read truncates uploads)."""
+    buf = b""
+    while len(buf) < n:
+        chunk = await body.read(n - len(buf))
+        if not chunk:
+            break
+        buf += chunk
+    return buf
+
+
+def _check_sha256(ctx, digest: "hashlib._Hash") -> None:
+    if ctx is not None and ctx.content_sha256 is not None:
+        if digest.hexdigest() != ctx.content_sha256:
+            from ..common.error import BadRequest
+
+            raise BadRequest(
+                "payload sha256 does not match x-amz-content-sha256",
+                code="XAmzContentSHA256Mismatch",
+            )
+
+
+# canonical implementation lives with the CRDT it protects
+from ...model.s3.object_table import next_timestamp  # noqa: E402,F401
+
+
+async def check_quotas(
+    garage, bucket_id: bytes, key: str, new_size: int, existing=None
+) -> None:
+    """Enforce bucket quotas against the distributed counters, crediting
+    the object being overwritten (reference put.rs:315 check_quotas).
+    `existing` skips a second quorum read when the caller already has the
+    object row."""
+    bucket = await garage.helper.get_bucket(bucket_id)
+    q = bucket.params().quotas.get() or {}
+    if not q.get("max_size") and not q.get("max_objects"):
+        return
+    counts = await garage.object_counter.get_values(bucket_id)
+    prev_objects = prev_bytes = 0
+    if existing is None:
+        existing = await garage.object_table.get(bucket_id, key.encode())
+    if existing is not None:
+        vis = existing.last_visible()
+        if vis is not None:
+            prev_objects = 1
+            prev_bytes = vis.data.get("meta", {}).get("size", 0)
+    if q.get("max_objects") is not None:
+        if counts.get("objects", 0) - prev_objects + 1 > q["max_objects"]:
+            raise ApiError("object count quota exceeded", code="QuotaExceeded", status=403)
+    if q.get("max_size") is not None:
+        if counts.get("bytes", 0) - prev_bytes + new_size > q["max_size"]:
+            raise ApiError("size quota exceeded", code="QuotaExceeded", status=403)
+
+
+
+def _absorb_hashes_sync(block: bytes, md5, sha, extra_hash) -> None:
+    """Chain the request-level digests over one block — CPU-bound, so
+    large blocks run it via asyncio.to_thread (the digest objects are
+    only ever advanced from the sequential read loop; hashlib releases
+    the GIL on large buffers)."""
+    md5.update(block)
+    sha.update(block)
+    if extra_hash is not None:
+        extra_hash.update(block)
+
+
+def _prep_block_sync(block: bytes, transform) -> tuple[bytes, bytes]:
+    """(stored_bytes, block_hash) — SSE transform + content hash, the
+    CPU-bound head of put_one (to_thread above the offload threshold)."""
+    stored = transform(block) if transform else block
+    return stored, blake2sum(stored)
+
+
+async def stream_blocks(
+    garage, vid: bytes, bucket_id: bytes, key: str, part_number: int,
+    body, block_size: int, first: bytes = b"", transform=None, extra_hash=None,
+):
+    """THE block-write pipeline shared by PutObject and UploadPart:
+    chunk the body, store blocks with bounded parallelism
+    (PUT_BLOCKS_MAX_PARALLEL), record version block entries + block refs
+    as we go.  Returns (md5_hex, sha_obj, total_bytes); on failure the
+    caller is responsible for tombstoning `vid`.
+
+    Pipelining: block N's CPU work (hash, SSE, codec encode — all off
+    the event loop) overlaps block N-1's fan-out, because up to
+    PUT_BLOCKS_MAX_PARALLEL put_one tasks run concurrently and none of
+    their stages blocks the loop anymore.  The
+    `api_s3_overlap_efficiency{op="put"}` gauge (utils/latency.py) is
+    the direct measure: 1.0 = the old strictly-sequential pipeline,
+    below 1.0 = the stages genuinely overlap."""
+    md5 = hashlib.md5()
+    sha = hashlib.sha256()
+    total = 0
+    offset = 0
+    offload_min = garage.config.block.cpu_offload_min_bytes
+    inflight: set[asyncio.Task] = set()
+    # every committed block entry, for the caller's version-cache warm
+    # (the union of these IS the quorum-committed version row)
+    committed_blocks: list[tuple[int, int, bytes, int]] = []
+
+    async def put_meta(h: bytes, stored_len: int, block_offset: int):
+        with phase_span("meta_commit"):
+            v = Version(vid, bucket_id, key)
+            v.blocks.put(
+                [part_number, block_offset], {"h": h, "s": stored_len}
+            )
+            # independent tables: commit both rows in one round-trip
+            # window instead of two sequential quorum waits
+            await asyncio.gather(
+                garage.version_table.insert(v),
+                garage.block_ref_table.insert(BlockRef(h, vid)),
+            )
+            committed_blocks.append(
+                (part_number, block_offset, h, stored_len)
+            )
+
+    async def put_one(block: bytes, block_offset: int):
+        with phase_span("hash"):
+            if len(block) >= offload_min:
+                stored, h = await asyncio.to_thread(
+                    _prep_block_sync, block, transform
+                )
+            else:
+                stored, h = _prep_block_sync(block, transform)
+        # block fan-out and meta rows commit CONCURRENTLY (reference
+        # put.rs put_block_and_meta's try_join!): the meta quorum wait
+        # used to serialize after the piece quorum wait, ~doubling the
+        # per-block critical path.  Failure of either leg raises out of
+        # stream_blocks and the caller's tombstone (version aborted /
+        # deleted marker) cascades the cleanup of whichever half landed.
+        await asyncio.gather(
+            garage.block_manager.rpc_put_block(h, stored),
+            put_meta(h, len(stored), block_offset),
+        )
+
+    async def launch(block: bytes, block_offset: int):
+        # backpressure: at most PUT_BLOCKS_MAX_PARALLEL blocks buffered in
+        # flight — the read loop (and the client) stall while storage
+        # catches up (reference put.rs:42)
+        while len(inflight) >= PUT_BLOCKS_MAX_PARALLEL:
+            done, _ = await asyncio.wait(inflight, return_when=asyncio.FIRST_COMPLETED)
+            for t in done:
+                inflight.discard(t)
+                # result() re-raises with the task's own traceback —
+                # `raise t.exception()` raised a bare instance whose
+                # context started HERE, losing the put_one frames
+                t.result()
+        inflight.add(asyncio.create_task(put_one(block, block_offset)))
+
+    async def absorb(block: bytes) -> None:
+        with phase_span("hash"):
+            if len(block) >= offload_min:
+                await asyncio.to_thread(
+                    _absorb_hashes_sync, block, md5, sha, extra_hash
+                )
+            else:
+                _absorb_hashes_sync(block, md5, sha, extra_hash)
+
+    try:
+        buf = first
+        while True:
+            while len(buf) >= block_size:
+                block, buf = buf[:block_size], buf[block_size:]
+                await absorb(block)
+                await launch(block, offset)
+                offset += len(block)
+                total += len(block)
+            with phase_span("chunk"):
+                chunk = await body.read(block_size)
+            if not chunk:
+                break
+            buf += chunk
+        if buf:
+            await absorb(buf)
+            await launch(buf, offset)
+            total += len(buf)
+        if inflight:
+            await asyncio.gather(*inflight)
+    except BaseException:
+        # cancel + DRAIN: a bare t.cancel() abandoned the in-flight
+        # tasks mid-write — their exceptions surfaced as never-retrieved
+        # warnings and a cancelled put could still be touching the
+        # version table while the caller tombstoned it
+        await reap(inflight, log=logger, what="put-block task")
+        raise
+    return md5.hexdigest(), sha, total, committed_blocks
+
+
+async def handle_put_object(
+    garage, bucket_id: bytes, key: str, request, ctx=None
+) -> web.Response:
+    from ..common.checksum import ChecksumRequest
+    from .encryption import EncryptionParams
+
+    mark_op("put")
+    enc = EncryptionParams.from_headers(request.headers)
+    cks = ChecksumRequest.from_headers(request.headers)
+    headers = extract_meta_headers(request)
+    body = request.content
+    block_size = garage.config.block_size
+    with phase_span("index_read"):
+        existing = await garage.object_table.get(bucket_id, key.encode())
+    ts = next_timestamp(existing)
+
+    with phase_span("chunk"):
+        first = await _read_at_least(body, INLINE_THRESHOLD + 1)
+    if len(first) <= INLINE_THRESHOLD:
+        # inline object
+        with phase_span("hash"):
+            sha = hashlib.sha256(first)
+        _check_sha256(ctx, sha)
+        with phase_span("index_read"):
+            await check_quotas(
+                garage, bucket_id, key, len(first), existing=existing
+            )
+        etag = hashlib.md5(first).hexdigest()
+        meta = {"size": len(first), "etag": etag, "headers": headers}
+        if cks is not None:
+            cks.update(first)
+            if cks.expected_b64 is None:
+                cks.resolve_trailer(getattr(body, "trailers", {}) or {})
+            meta["cks"] = cks.verify()
+        stored = first
+        if enc is not None:
+            stored = enc.encrypt_block(first)
+            meta["enc"] = enc.meta()
+        version = ObjectVersion(
+            gen_uuid(),
+            ts,
+            "complete",
+            {"t": "inline", "bytes": stored, "meta": meta},
+        )
+        with phase_span("meta_commit"):
+            await garage.object_table.insert(
+                Object(bucket_id, key, [version])
+            )
+        resp_headers = {"ETag": f'"{etag}"'}
+        if enc is not None:
+            resp_headers.update(enc.response_headers())
+        return web.Response(status=200, headers=resp_headers)
+
+    # multi-block object
+    vid = gen_uuid()
+    version0 = ObjectVersion(vid, ts, "uploading", {"t": "first_block", "vid": vid})
+    with phase_span("meta_commit"):
+        # independent tables: one quorum round-trip window, not two
+        await asyncio.gather(
+            garage.object_table.insert(Object(bucket_id, key, [version0])),
+            garage.version_table.insert(Version(vid, bucket_id, key)),
+        )
+    buf_first = first
+
+    in_indeterminate_zone = False
+    try:
+        md5_hex, sha, total, committed_blocks = await stream_blocks(
+            garage, vid, bucket_id, key, 0, body, block_size, first=buf_first,
+            transform=enc.encrypt_block if enc else None, extra_hash=cks,
+        )
+        _check_sha256(ctx, sha)
+        if cks is not None and cks.expected_b64 is None:
+            cks.resolve_trailer(getattr(body, "trailers", {}) or {})
+        with phase_span("index_read"):
+            await check_quotas(
+                garage, bucket_id, key, total, existing=existing
+            )
+
+        etag = md5_hex
+        meta = {"size": total, "etag": etag, "headers": headers}
+        if cks is not None:
+            meta["cks"] = cks.verify()
+        if enc is not None:
+            meta["enc"] = enc.meta()
+        final = ObjectVersion(
+            vid, ts, "complete",
+            {"t": "first_block", "vid": vid, "meta": meta},
+        )
+        # INDETERMINATE ZONE — do not abort past this point.  A quorum
+        # timeout on the final insert can leave the "complete" row on a
+        # MINORITY of nodes: their CRDT prune then drops the previous
+        # version and cascades its version-table deletion.  If we then
+        # inserted "aborted" (which beats "complete" in the state
+        # order), the new version un-completes everywhere while the old
+        # one's data is already tombstoned — the last ACKED write 404s
+        # ("version data missing") with nothing left to heal it.  The
+        # jepsen combined-nemeses flake under CPU load was exactly this
+        # (pinned repro: tests/test_model.py
+        # test_put_overwrite_indeterminate_complete_not_aborted).  At
+        # this point every block and version row is quorum-committed, so
+        # the safe failure mode is to LEAVE the uploading row (pruned by
+        # the next successful overwrite) and return 500 — at-least-once,
+        # never un-complete.  See doc/metadata-replication.md.
+        in_indeterminate_zone = True
+        with phase_span("meta_commit"):
+            await garage.object_table.insert(Object(bucket_id, key, [final]))
+        # warm the metadata fast path: the union of the per-block rows
+        # this request quorum-committed IS the version row a GET would
+        # read — the next GET of this key skips the version quorum read.
+        # One-shot CrdtMap construction (single sort): per-block put()
+        # re-merges the whole map each time, O(n^2 log n) on a
+        # many-thousand-block PUT, synchronously on the event loop.
+        full_v = Version(vid, bucket_id, key)
+        full_v.blocks = CrdtMap(
+            [([pn, off], {"h": h, "s": sz})
+             for pn, off, h, sz in committed_blocks]
+        )
+        garage.version_cache.put(vid, full_v)
+        resp_headers = {"ETag": f'"{etag}"'}
+        if enc is not None:
+            resp_headers.update(enc.response_headers())
+        return web.Response(status=200, headers=resp_headers)
+    except BaseException:
+        if in_indeterminate_zone:
+            raise
+        # InterruptedCleanup (reference put.rs:217-223): mark aborted so
+        # the cascade reclaims stored blocks
+        aborted = ObjectVersion(vid, ts, "aborted", {"t": "first_block", "vid": vid})
+        try:
+            await garage.object_table.insert(Object(bucket_id, key, [aborted]))
+        except Exception:  # noqa: BLE001
+            logger.exception("failed to mark aborted upload")
+        raise
+
+
+def _pick_version(obj: Object | None) -> ObjectVersion:
+    if obj is None:
+        raise NoSuchKey("object not found")
+    v = obj.last_visible()
+    if v is None:
+        raise NoSuchKey("object not found")
+    return v
+
+
+def _meta_headers(version: ObjectVersion) -> dict[str, str]:
+    from ..common.checksum import response_headers as _cks_headers
+
+    meta = version.data.get("meta", {})
+    out = {
+        "ETag": f'"{meta.get("etag", "")}"',
+        "Content-Length": str(meta.get("size", 0)),
+        "Last-Modified": _http_date(version.timestamp),
+        "x-amz-version-id": version.uuid.hex(),
+        "Accept-Ranges": "bytes",
+    }
+    for name, value in meta.get("headers", []):
+        out[name.title()] = value
+    out.update(_cks_headers(meta))
+    return out
+
+
+def _http_date(ts_ms: int) -> str:
+    from datetime import datetime, timezone
+
+    dt = datetime.fromtimestamp(ts_ms / 1000, tz=timezone.utc)
+    return dt.strftime("%a, %d %b %Y %H:%M:%S GMT")
+
+
+def _parse_http_date(s: str) -> float:
+    from email.utils import parsedate_to_datetime
+
+    from ..common.error import BadRequest
+
+    try:
+        return parsedate_to_datetime(s).timestamp()
+    except (TypeError, ValueError) as e:
+        raise BadRequest(f"invalid HTTP date {s!r}") from e
+
+
+class Preconditions:
+    """RFC 7232 §6 conditional evaluation (reference get.rs:783-885),
+    shared by GET/HEAD and the x-amz-copy-source-if-* variants."""
+
+    __slots__ = ("if_match", "if_none_match", "if_modified_since",
+                 "if_unmodified_since")
+
+    _HDRS = ("If-Match", "If-None-Match", "If-Modified-Since",
+             "If-Unmodified-Since")
+    _COPY_HDRS = tuple(f"x-amz-copy-source-{h.lower()}" for h in _HDRS)
+
+    def __init__(self, headers, names):
+        im, inm, ims, ius = (headers.get(n) for n in names)
+        etags = lambda v: [e.strip().strip('"') for e in v.split(",")]  # noqa: E731
+        self.if_match = etags(im) if im is not None else None
+        self.if_none_match = etags(inm) if inm is not None else None
+        self.if_modified_since = _parse_http_date(ims) if ims else None
+        self.if_unmodified_since = _parse_http_date(ius) if ius else None
+
+    @classmethod
+    def parse(cls, request) -> "Preconditions":
+        return cls(request.headers, cls._HDRS)
+
+    @classmethod
+    def parse_copy_source(cls, request) -> "Preconditions":
+        return cls(request.headers, cls._COPY_HDRS)
+
+    def check(self, version: ObjectVersion) -> int | None:
+        """Returns 304/412 when a precondition short-circuits, else None."""
+        etag = version.data.get("meta", {}).get("etag", "")
+        v_date = version.timestamp / 1000.0
+        if self.if_match is not None:
+            if not any(x == etag or x == "*" for x in self.if_match):
+                return 412
+        elif self.if_unmodified_since is not None:
+            if v_date > self.if_unmodified_since:
+                return 412
+        if self.if_none_match is not None:
+            if any(x == etag or x == "*" for x in self.if_none_match):
+                return 304
+        elif self.if_modified_since is not None:
+            if v_date <= self.if_modified_since:
+                return 304
+        return None
+
+    def check_copy_source(self, version: ObjectVersion) -> None:
+        if self.check(version) is not None:
+            raise PreconditionFailed("copy source precondition failed")
+
+
+def _check_conditionals(request, version: ObjectVersion) -> None:
+    status = Preconditions.parse(request).check(version)
+    if status == 304:
+        raise ApiError("not modified", code="NotModified", status=304)
+    if status == 412:
+        raise PreconditionFailed("precondition failed")
+
+
+def _parse_range(request, size: int) -> tuple[int, int] | None:
+    rng = request.headers.get("Range")
+    if not rng or not rng.startswith("bytes="):
+        return None
+    spec = rng[len("bytes="):].split(",")[0].strip()
+    start_s, _, end_s = spec.partition("-")
+    try:
+        if start_s == "":  # suffix range: last N bytes
+            n = int(end_s)
+            if n <= 0:
+                raise InvalidRange("empty suffix range")
+            return (max(0, size - n), size)
+        start = int(start_s)
+        end = int(end_s) + 1 if end_s else size
+    except ValueError as e:
+        raise InvalidRange(f"bad Range: {rng!r}") from e
+    if start >= size or start >= end:
+        raise InvalidRange(f"range {rng!r} outside object of size {size}")
+    return (start, min(end, size))
+
+
+def _plain_len(blk: dict, enc_params) -> int:
+    from .encryption import OVERHEAD
+
+    return blk["s"] - (OVERHEAD if enc_params is not None else 0)
+
+
+def part_bounds(blocks, part_number: int, enc_params) -> tuple[int, int] | None:
+    """Plaintext [begin, end) extent of a stored part (reference
+    get.rs:620-633 calculate_part_bounds), or None if no such part."""
+    offset = 0
+    begin = None
+    for (pn, _off), blk in blocks:
+        if pn == part_number and begin is None:
+            begin = offset
+        elif pn != part_number and begin is not None:
+            return (begin, offset)
+        offset += _plain_len(blk, enc_params)
+    return (begin, offset) if begin is not None else None
+
+
+# depth 8 fully hides a 2ms inter-node RTT at 64 KiB blocks (bench_s3
+# --bigget sweep: depth 1 = 3.7s, 4 = 1.9s, 8 = 1.15s = local floor for
+# a 100 MiB object).  Per-GET RAM is bounded by depth x block_size
+# (fetched-but-unconsumed window); transfer-time RAM is additionally
+# under the shared ByteBudget inside rpc_get_block.  The window blocks
+# must NOT hold shared-budget reservations while parked: consumption
+# order differs from acquisition order across concurrent GETs, which
+# deadlocks a contended budget.
+GET_PREFETCH_DEPTH = max(1, int(os.environ.get("GARAGE_GET_PREFETCH", "8")))
+
+
+async def plain_block_stream(garage, blocks, start: int, end: int, enc_params):
+    """Async generator of plaintext chunks covering [start, end) of a
+    version's block list (the GET hot loop, reference get.rs:650-760) —
+    shared by GetObject and UploadPartCopy.
+
+    Prefetches GET_PREFETCH_DEPTH blocks ahead so a multi-block read
+    streams back-to-back instead of paying one RPC round-trip per block;
+    the fetches ride one OrderTag sub-stream, so the storage side
+    transmits them in order (reference net/message.rs:62-89 +
+    get.rs:650-760 pipeline)."""
+    wanted: list[tuple[int, int, bytes]] = []
+    pos = 0
+    for (_part, _off), blk in blocks:
+        b_start, b_end = pos, pos + _plain_len(blk, enc_params)
+        pos = b_end
+        if b_end <= start or b_start >= end:
+            continue
+        wanted.append((b_start, b_end, blk["h"]))
+
+    from ...net.message import new_order_stream
+
+    bm = garage.block_manager
+    tag_stream = new_order_stream()
+    reads: list = []
+    nxt = 0
+    try:
+        for i, (b_start, b_end, _h) in enumerate(wanted):
+            while nxt < len(wanted) and nxt < i + GET_PREFETCH_DEPTH:
+                # tags allocate in spawn order == block order.
+                # PRIO_HIGH: interactive GET is the top admission tier
+                # (api/overload.py), and its piece fetches must outrank
+                # PUT fan-out (PRIO_NORMAL) and background resync
+                # (PRIO_BACKGROUND) at the connection scheduler too —
+                # the RPC-level mirror of the HTTP priority classes.
+                # start_block_read begins fetching NOW: block i's
+                # systematic pieces stream out below while blocks
+                # i+1..i+depth gather theirs.
+                reads.append(
+                    bm.start_block_read(
+                        wanted[nxt][2], prio=PRIO_HIGH,
+                        order_tag=tag_stream.order(),
+                    )
+                )
+                nxt += 1
+            br = reads[i]
+            lo = max(start - b_start, 0)
+            hi = min(end, b_end) - b_start
+            if enc_params is not None:
+                # SSE blocks only decrypt whole: assemble, then slice
+                data = enc_params.decrypt_block(await br.bytes())
+                yield data[lo:hi]
+                del data
+            else:
+                # stream chunks as the block's pieces land, clipped to
+                # the requested [lo, hi) plaintext window
+                pos = 0
+                async for chunk in br.chunks():
+                    c = chunk[max(lo - pos, 0): max(hi - pos, 0)]
+                    pos += len(chunk)
+                    if c:
+                        yield c  # consumer records stream_out
+                    del chunk
+            reads[i] = None  # drop the handle: window RAM stays bounded
+    finally:
+        # consumer gone (disconnect) or error: abort every in-flight
+        # prefetch, including the one currently consumed
+        live = [r for r in reads if r is not None]
+
+        async def _abort_reads(rs):
+            # concurrent: teardown costs the slowest cancel, not the sum
+            await asyncio.gather(*[r.abort() for r in rs])
+
+        # ONE shielded coroutine for the aborts: a cancel landing
+        # mid-drain re-raises at this await but every pump is still
+        # reaped in the shielded task (cancel-safety)
+        if live:
+            await asyncio.shield(_abort_reads(live))
+
+
+def _parse_part_number(request) -> int | None:
+    pn_s = request.query.get("partNumber")
+    if pn_s is None:
+        return None
+    from ..common.error import BadRequest
+
+    try:
+        pn = int(pn_s)
+    except ValueError as e:
+        raise BadRequest(f"bad partNumber {pn_s!r}") from e
+    if not 1 <= pn <= 10000:
+        raise BadRequest("partNumber must be in 1..10000")
+    if "Range" in request.headers:
+        raise BadRequest("cannot specify both partNumber and Range")
+    return pn
+
+
+async def _escalate_version_missing(garage, bucket_id, key, stale):
+    """The object row resolved a version whose version-table row is
+    tombstoned or absent.  The legitimate cause (pinned by
+    tests/test_put_abort_race.py, the jepsen `404 version data missing`
+    lead): an indeterminate overwrite landed its "complete" row on a
+    minority of object replicas, and that minority's CRDT prune cascade
+    tombstoned OUR version's row at quorum speed — so quorum reads that
+    skip the minority replica keep resolving a version with no data.
+    Recovery: merge the object row from EVERY reachable replica
+    (read-repairing the merge back), and serve the newer version it
+    surfaces.  If the full merge still resolves the same version, the
+    data is genuinely gone — 404."""
+    with phase_span("index_read"):
+        obj = await garage.object_table.get_merged_all(
+            bucket_id, key.encode()
+        )
+    version = _pick_version(obj)
+    if version.data.get("t") == "inline":
+        return version, None
+    if bytes(version.data.get("vid", b"")) == bytes(
+        stale.data.get("vid", b"")
+    ):
+        raise NoSuchKey("version data missing")
+    with phase_span("index_read"):
+        ver = await garage.version_table.get(version.data["vid"], b"")
+    if ver is None or ver.deleted.get():
+        raise NoSuchKey("version data missing")
+    return version, ver
+
+
+async def handle_get_object(
+    garage,
+    bucket_id: bytes,
+    key: str,
+    request,
+    head_only: bool = False,
+    allow_overrides: bool = True,
+) -> web.StreamResponse:
+    from .encryption import EncryptionParams, check_match
+
+    mark_op("head" if head_only else "get")
+    part_number = _parse_part_number(request)
+    with phase_span("index_read"):
+        obj = await garage.object_table.get(bucket_id, key.encode())
+    version = _pick_version(obj)
+    blocks = None
+    # plain HEAD never needs the block list — don't pay a version-table
+    # quorum read on that hot path
+    if version.data.get("t") != "inline" and (
+        part_number is not None or not head_only
+    ):
+        # metadata fast path: a visible complete version's row is
+        # immutable (VersionRowCache safety argument), so repeat GETs
+        # skip the second quorum read entirely
+        vid = bytes(version.data["vid"])
+        ver = garage.version_cache.get(vid)
+        if ver is None:
+            with phase_span("index_read"):
+                ver = await garage.version_table.get(vid, b"")
+            if ver is not None and not ver.deleted.get():
+                garage.version_cache.put(vid, ver)
+        if ver is None or ver.deleted.get():
+            # escalate before 404ing (tests/test_put_abort_race.py): a
+            # newer complete overwrite may exist on a MINORITY of object
+            # replicas, its prune cascade having tombstoned OUR version
+            # at quorum speed while the staggered quorum read above
+            # never consulted that replica
+            version, ver = await _escalate_version_missing(
+                garage, bucket_id, key, version
+            )
+        if ver is not None:
+            blocks = ver.sorted_blocks()
+    _check_conditionals(request, version)
+    meta = version.data.get("meta", {})
+    enc_params = EncryptionParams.from_headers(request.headers)
+    check_match(meta.get("enc"), enc_params)
+    size = meta.get("size", 0)
+    headers = _meta_headers(version)
+    if enc_params is not None:
+        headers.update(enc_params.response_headers())
+
+    # response-* query overrides (reference get.rs:100-117): SIGNED
+    # requests only — on the anonymous website path a visitor-controlled
+    # ?response-content-type would turn uploaded blobs into stored XSS
+    if allow_overrides:
+        for qname, hname in (
+            ("response-cache-control", "Cache-Control"),
+            ("response-content-disposition", "Content-Disposition"),
+            ("response-content-encoding", "Content-Encoding"),
+            ("response-content-language", "Content-Language"),
+            ("response-content-type", "Content-Type"),
+            ("response-expires", "Expires"),
+        ):
+            if qname in request.query:
+                headers[hname] = request.query[qname]
+
+    is_inline = version.data.get("t") == "inline"
+
+    status = 200
+    if part_number is not None:
+        # part-number read (reference get.rs:144-190, 534-592): a ranged
+        # read over the part's stored extent, with the parts count exposed
+        if is_inline:
+            if part_number != 1:
+                raise ApiError("no such part", code="InvalidPart", status=400)
+            rng = (0, size)
+            n_parts = 1
+        else:
+            b = part_bounds(blocks, part_number, enc_params)
+            if b is None:
+                raise ApiError("no such part", code="InvalidPart", status=400)
+            rng = b
+            n_parts = len({pn for (pn, _off), _blk in blocks})
+        headers["x-amz-mp-parts-count"] = str(n_parts)
+        status = 206
+    else:
+        rng = _parse_range(request, size)
+        if rng is not None:
+            status = 206
+    if rng is not None and status == 206:
+        start, end = rng
+        headers["Content-Range"] = f"bytes {start}-{end - 1}/{size}"
+        headers["Content-Length"] = str(end - start)
+
+    if head_only:
+        return web.Response(status=status, headers=headers)
+
+    if is_inline:
+        data = version.data["bytes"]
+        if enc_params is not None:
+            data = enc_params.decrypt_block(data)
+        if rng is not None:
+            data = data[rng[0] : rng[1]]
+        return web.Response(status=status, body=data, headers=headers)
+
+    start, end = rng if rng is not None else (0, size)
+    resp = web.StreamResponse(status=status, headers=headers)
+    await resp.prepare(request)
+    try:
+        async for chunk in plain_block_stream(
+            garage, blocks, start, end, enc_params
+        ):
+            with phase_span("stream_out"):
+                await resp.write(chunk)
+    except Exception as e:  # noqa: BLE001
+        # 200 + Content-Length are already on the wire, so an error
+        # document can no longer be sent — abort the connection so the
+        # client sees a truncated transfer NOW instead of waiting out its
+        # own timeout on a body that will never complete (the error
+        # middleware would otherwise try to send a second response on
+        # this same connection)
+        logger.warning("aborting GET mid-stream: %r", e)
+        resp.force_close()
+        if request.transport is not None:
+            request.transport.close()
+        return resp
+    await resp.write_eof()
+    return resp
+
+
+async def handle_delete_object(garage, bucket_id: bytes, key: str) -> web.Response:
+    mark_op("delete")
+    with phase_span("index_read"):
+        obj = await garage.object_table.get(bucket_id, key.encode())
+    if obj is None or obj.last_visible() is None:
+        # deleting a non-existent object is a success in S3
+        return web.Response(status=204)
+    dm = ObjectVersion(
+        gen_uuid(), next_timestamp(obj), "complete", {"t": "delete_marker"}
+    )
+    with phase_span("meta_commit"):
+        await garage.object_table.insert(Object(bucket_id, key, [dm]))
+    return web.Response(status=204)

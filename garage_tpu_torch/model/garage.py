@@ -1,0 +1,909 @@
+"""Garage: the composition root wiring every subsystem
+(reference src/model/garage.rs:95-320).
+
+Boot order: config -> db -> netapp -> layout manager -> system -> block
+manager -> tables (with their reactive cross-links) -> background workers.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+
+import torch
+
+from ..block.codec import get_codec
+from ..block.manager import BlockManager
+from ..db import open_db
+from ..net.handshake import gen_node_key, node_id_of
+from ..net.netapp import NetApp
+from ..rpc.layout.manager import LayoutManager, PersistedLayout
+from ..rpc.replication_mode import ReplicationMode
+from ..rpc.rpc_helper import RpcHelper
+from ..rpc.system import PersistedPeers, System
+from ..table.replication import (
+    TableFullReplication,
+    TableMetaReplication,
+    TableStripeSyncedReplication,
+)
+from ..table.table import Table
+from ..utils.background import BackgroundRunner
+from ..utils.config import Config, TpuConfig
+from ..utils.persister import Persister
+from .bucket_alias_table import BucketAliasTable
+from .bucket_table import BucketTable
+from .key_table import KeyTable
+from .s3.block_ref_table import BlockRefTable
+from .s3.object_table import ObjectTable
+from .s3.version_table import VersionTable
+
+logger = logging.getLogger("garage")
+
+
+def network_key_from_secret(secret: str) -> bytes:
+    """rpc_secret (hex) -> the 32-byte cluster network key."""
+    return bytes.fromhex(secret.ljust(64, "0"))[:32]
+
+
+def _parse_addr(s: str) -> tuple[str, int]:
+    host, _, port = s.rpartition(":")
+    return (host.strip("[]") or "0.0.0.0", int(port))
+
+
+def _public_addr_from_subnet(subnet: str, port: int) -> tuple[str, int] | None:
+    """First local interface address inside `subnet` (CIDR), with the RPC
+    bind port — reference system.rs:885-935 get_rpc_public_addr /
+    get_default_ip filtered by rpc_public_addr_subnet."""
+    import ipaddress
+    import socket
+
+    net = ipaddress.ip_network(subnet, strict=False)
+    candidates: list[str] = []
+    # the default-route address (UDP connect performs no I/O) ...
+    probe = "8.8.8.8" if net.version == 4 else "2001:4860:4860::8888"
+    fam = socket.AF_INET if net.version == 4 else socket.AF_INET6
+    try:
+        s = socket.socket(fam, socket.SOCK_DGRAM)
+        try:
+            s.connect((probe, 9))
+            candidates.append(s.getsockname()[0])
+        finally:
+            s.close()
+    except OSError:
+        pass
+    # ... plus everything the hostname resolves to
+    try:
+        for info in socket.getaddrinfo(socket.gethostname(), None, fam):
+            candidates.append(info[4][0])
+    except OSError:
+        pass
+    for ip in candidates:
+        try:
+            if ipaddress.ip_address(ip) in net:
+                return (ip, port)
+        except ValueError:
+            continue
+    logger.warning(
+        "rpc_public_addr_subnet %s matches no local address (candidates: %s)",
+        subnet, candidates,
+    )
+    return None
+
+
+def codec_device(tpu: TpuConfig) -> str:
+    """The device of the block codec and the scrub's hashing: "cpu" (the
+    kernels' plain versions) when `[tpu]` asks for the CPU, with
+    `enable = false` or `platform = "cpu"`; otherwise "cuda", which must
+    be present: a node never falls back to the CPU on its own."""
+    if not tpu.enable or tpu.platform == "cpu":
+        return "cpu"
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "[tpu] selects the CUDA card, but torch.cuda.is_available() is "
+            "False; set [tpu] enable = false to run on the CPU"
+        )
+    return "cuda"
+
+
+def _parse_bootstrap(entries: list[str]) -> list[tuple[bytes, tuple[str, int]]]:
+    """'hexid@host:port' entries (reference: node id @ address)."""
+    out = []
+    for e in entries:
+        nid, _, addr = e.partition("@")
+        out.append((bytes.fromhex(nid), _parse_addr(addr)))
+    return out
+
+
+class Garage:
+    def __init__(self, config: Config):
+        self.config = config
+        device = codec_device(config.tpu)  # before anything is opened
+        meta = config.metadata_dir
+        os.makedirs(meta, exist_ok=True)
+
+        # node identity persists across restarts
+        keyfile = os.path.join(meta, "node_key")
+        if os.path.exists(keyfile):
+            with open(keyfile, "rb") as f:
+                node_key = f.read()
+        else:
+            node_key = gen_node_key()
+            with open(keyfile, "wb") as f:
+                f.write(node_key)
+            os.chmod(keyfile, 0o600)
+        self.node_id = node_id_of(node_key)
+
+        if not config.rpc_secret:
+            raise ValueError("rpc_secret is required")
+        network_key = network_key_from_secret(config.rpc_secret)
+
+        self.db = open_db(
+            os.path.join(meta, "db"),
+            engine=config.db_engine,
+            fsync=config.metadata_fsync,
+        )
+        self.netapp = NetApp(network_key, node_key)
+
+        self.replication_mode = ReplicationMode(
+            config.replication_factor, config.consistency_mode
+        )
+        # the SECOND quorum tuple: metadata tables replicate
+        # at their own factor — O(1) in EC stripe width — on the meta
+        # ring (table/replication.py TableMetaReplication).  Effective
+        # factor is min(meta rf, layout rf); config load validated an
+        # explicit meta rf against the cluster's minimum size.
+        self.meta_replication_mode = ReplicationMode(
+            min(config.meta.replication_factor, config.replication_factor),
+            config.consistency_mode,
+        )
+        self.layout_manager = LayoutManager(
+            self.node_id,
+            config.replication_factor,
+            persister=Persister(meta, "cluster_layout", PersistedLayout),
+        )
+        public_addr = (
+            _parse_addr(config.rpc_public_addr) if config.rpc_public_addr else None
+        )
+        if public_addr is None and config.rpc_public_addr_subnet:
+            public_addr = _public_addr_from_subnet(
+                config.rpc_public_addr_subnet,
+                _parse_addr(config.rpc_bind_addr)[1],
+            )
+        from ..rpc.discovery import discovery_from_config
+
+        self.system = System(
+            self.netapp,
+            self.layout_manager,
+            self.replication_mode,
+            bootstrap=_parse_bootstrap(config.bootstrap_peers),
+            peer_persister=Persister(meta, "peer_list", PersistedPeers),
+            metadata_dir=meta,
+            data_dirs=[d.path for d in config.data_dir],
+            public_addr=public_addr,
+            discovery=discovery_from_config(config),
+        )
+        # one PeerHealth instance shared by the RPC helper (call outcomes,
+        # breaker gating) and the peering layer (ping outcomes): pings are
+        # the background probe that detects a sick peer healing
+        from ..rpc.peer_health import PeerHealth
+
+        self.peer_health = PeerHealth(self.node_id)
+        self.helper_rpc = RpcHelper(
+            self.node_id, self.system.peering,
+            default_timeout=config.rpc_timeout_msec / 1000.0,
+            health=self.peer_health,
+        )
+        self.system.peering.health = self.peer_health
+
+        def _zone_of(nid: bytes) -> str | None:
+            for v in reversed(self.layout_manager.history.versions):
+                role = v.roles.get(nid)
+                if role is not None:
+                    return role.zone
+            return None
+
+        self.helper_rpc.zone_of = _zone_of
+        if config.rpc_ping_timeout_msec:
+            # reference system.rs:269 set_ping_timeout_millis
+            self.system.peering.ping_timeout = config.rpc_ping_timeout_msec / 1000.0
+
+        codec = get_codec(config.ec_params(), device=device)
+        self.block_manager = BlockManager(
+            self.system,
+            self.helper_rpc,
+            self.db,
+            config.data_dir,
+            meta,
+            compression_level=config.compression_level,
+            codec=codec,
+            data_fsync=config.data_fsync,
+            ram_buffer_max=config.block_ram_buffer_max,
+            disable_scrub=config.disable_scrub,
+            block_config=config.block,
+        )
+
+        # tables, wired with their reactive cross-links.  Sharded model
+        # tables place entries on the META ring (first meta_rf distinct
+        # nodes of the partition's node list) — block placement alone
+        # spans the full stripe.
+        sharded = TableMetaReplication(self.system, self.meta_replication_mode)
+        # block_ref: same meta-ring quorums, but anti-entropy spans the
+        # full stripe — its updated() hook feeds every piece holder's rc
+        # tree (resync/scrub/GC/durability all walk it locally)
+        ref_sharded = TableStripeSyncedReplication(
+            self.system, self.meta_replication_mode
+        )
+        fullcopy = TableFullReplication(self.system)
+
+        self.block_ref_schema = BlockRefTable(self.block_manager)
+        self.block_ref_table = Table(
+            self.system, self.helper_rpc, self.db, self.block_ref_schema,
+            ref_sharded,
+        )
+        self.version_schema = VersionTable(self.block_ref_table)
+        self.version_table = Table(
+            self.system, self.helper_rpc, self.db, self.version_schema, sharded
+        )
+        # metadata fast path: per-node cache of complete
+        # versions' rows — repeat GETs skip the version quorum read
+        from .s3.version_table import VersionRowCache
+
+        self.version_cache = VersionRowCache(config.meta.version_cache_entries)
+        self.object_schema = ObjectTable(self.version_table)
+        self.object_table = Table(
+            self.system, self.helper_rpc, self.db, self.object_schema, sharded
+        )
+        from .s3.mpu_table import MpuTable
+
+        self.mpu_table = Table(
+            self.system, self.helper_rpc, self.db, MpuTable(self.version_table), sharded
+        )
+        from .index_counter import CounterTable, IndexCounter
+
+        self.object_counter_table = Table(
+            self.system, self.helper_rpc, self.db,
+            CounterTable("bucket_object_counter"), sharded,
+        )
+        self.object_counter = IndexCounter(
+            self.system, self.object_counter_table, self.db
+        )
+        self.object_schema.counter = self.object_counter
+        from .index_counter import CounterTable as _CT, IndexCounter as _IC
+        from .k2v.item_table import K2VItemTable
+
+        self.k2v_counter_table = Table(
+            self.system, self.helper_rpc, self.db, _CT("k2v_index_counter"), sharded
+        )
+        self.k2v_counter = _IC(self.system, self.k2v_counter_table, self.db)
+        self.k2v_item_schema = K2VItemTable(counter=self.k2v_counter)
+        self.k2v_item_table = Table(
+            self.system, self.helper_rpc, self.db, self.k2v_item_schema, sharded
+        )
+        self.bucket_table = Table(
+            self.system, self.helper_rpc, self.db, BucketTable(), fullcopy
+        )
+        self.bucket_alias_table = Table(
+            self.system, self.helper_rpc, self.db, BucketAliasTable(), fullcopy
+        )
+        self.key_table = Table(
+            self.system, self.helper_rpc, self.db, KeyTable(), fullcopy
+        )
+        self.tables = [
+            self.k2v_counter_table,
+            self.k2v_item_table,
+            self.object_counter_table,
+            self.object_table,
+            self.version_table,
+            self.block_ref_table,
+            self.mpu_table,
+            self.bucket_table,
+            self.bucket_alias_table,
+            self.key_table,
+        ]
+        # coalesced table write path ([meta] coalesce_*): the sharded
+        # (meta-ring) tables are the hot commit path — object/version/
+        # blockref rows from concurrent requests share RPCs
+        if config.meta.coalesce_enabled:
+            for t in self.tables:
+                if isinstance(t.replication, TableMetaReplication):
+                    t.enable_coalescing(
+                        linger_msec=config.meta.coalesce_linger_msec,
+                        max_entries=config.meta.coalesce_max_entries,
+                    )
+
+        from .helper import GarageHelper
+        from .k2v.rpc import K2VRpcHandler
+
+        self.helper = GarageHelper(self)
+        self.k2v_rpc = K2VRpcHandler(self)
+
+        # runtime-tunable variables (reference util/background/vars.rs,
+        # `garage worker get/set`)
+        from ..utils.background import BgVars
+
+        self.bg_vars = BgVars()
+        resync = self.block_manager.resync
+        self.bg_vars.register_rw(
+            "resync-tranquility",
+            lambda: str(resync.tranquility),
+            lambda v: setattr(resync, "tranquility", max(0, int(v))),
+        )
+        self.bg_vars.register_rw(
+            "resync-worker-count",
+            lambda: str(resync.n_workers),
+            lambda v: setattr(resync, "n_workers", max(1, min(8, int(v)))),
+        )
+
+        # codec batcher ([block] knobs): live-tuned on the running
+        # batcher — the flusher reads them on every flush cycle
+        def _batcher():
+            b = self.block_manager.batcher
+            if b is None:
+                raise ValueError("codec batcher not active (replica codec?)")
+            return b
+
+        self.bg_vars.register_rw(
+            "codec-batch-linger-msec",
+            lambda: str(_batcher().linger_msec),
+            lambda v: setattr(_batcher(), "linger_msec", max(0.0, float(v))),
+        )
+        self.bg_vars.register_rw(
+            "codec-batch-max-blocks",
+            lambda: str(_batcher().max_blocks),
+            lambda v: setattr(_batcher(), "max_blocks", max(1, int(v))),
+        )
+
+        # read path: hot-block cache budget resizes live
+        # (shrinking evicts immediately); the hedge-delay floor applies
+        # to the next read (the manager reads block_config per GET)
+        self.bg_vars.register_rw(
+            "read-cache-bytes",
+            lambda: str(self.block_manager.read_cache.max_bytes),
+            lambda v: self.block_manager.read_cache.set_max_bytes(int(v)),
+        )
+        self.bg_vars.register_rw(
+            "read-hedge-min-msec",
+            lambda: str(self.block_manager.block_config.read_hedge_min_msec),
+            lambda v: setattr(
+                self.block_manager.block_config,
+                "read_hedge_min_msec",
+                max(0.0, float(v)),
+            ),
+        )
+
+        def _scrub_worker():
+            sw = getattr(self.block_manager, "scrub_worker", None)
+            if sw is None:
+                raise ValueError("scrub worker not running")
+            return sw
+
+        self.bg_vars.register_rw(
+            "scrub-tranquility",
+            lambda: str(_scrub_worker().state.tranquility),
+            lambda v: _scrub_worker().cmd_set_tranquility(int(v)),
+        )
+
+        def _set_sync_interval(v: str) -> None:
+            secs = float(v)
+            if secs <= 0:
+                raise ValueError("sync-interval-secs must be > 0")
+            for t in self.tables:
+                t.syncer.anti_entropy_interval = secs
+
+        self.bg_vars.register_rw(
+            "sync-interval-secs",
+            lambda: str(self.tables[0].syncer.anti_entropy_interval),
+            _set_sync_interval,
+        )
+
+        # table insert coalescer ([meta] knobs): live-tuned on every
+        # enabled table — the flusher reads them each flush cycle
+        def _coalescers():
+            cs = [t.coalescer for t in self.tables if t.coalescer is not None]
+            if not cs:
+                raise ValueError("insert coalescing not enabled ([meta])")
+            return cs
+
+        def _set_coalesce_linger(v: str) -> None:
+            msec = float(v)
+            if msec < 0:
+                raise ValueError("meta-coalesce-linger-msec must be >= 0")
+            for c in _coalescers():
+                c.linger_msec = msec
+
+        def _set_coalesce_max(v: str) -> None:
+            n = int(v)
+            if n < 1:
+                raise ValueError("meta-coalesce-max-entries must be >= 1")
+            for c in _coalescers():
+                c.max_entries = n
+
+        self.bg_vars.register_rw(
+            "meta-coalesce-linger-msec",
+            lambda: str(_coalescers()[0].linger_msec),
+            _set_coalesce_linger,
+        )
+        self.bg_vars.register_rw(
+            "meta-coalesce-max-entries",
+            lambda: str(_coalescers()[0].max_entries),
+            _set_coalesce_max,
+        )
+
+        # repair plane (block/repair_plan.py): knob object shared with a
+        # running planner so `worker set` changes apply on the next round
+        from ..block.repair_plan import PlanParams
+
+        self.repair_params = PlanParams(
+            tranquility=config.repair.tranquility,
+            bytes_in_flight=config.repair.bytes_in_flight,
+            batch_blocks=config.repair.batch_blocks,
+        )
+        self.repair_planner = None
+        self.bg_vars.register_rw(
+            "repair-tranquility",
+            lambda: str(self.repair_params.tranquility),
+            lambda v: setattr(
+                self.repair_params, "tranquility", max(0, int(v))
+            ),
+        )
+        self.bg_vars.register_rw(
+            "repair-bytes-in-flight",
+            lambda: str(self.repair_params.bytes_in_flight),
+            lambda v: setattr(
+                self.repair_params, "bytes_in_flight", max(1, int(v))
+            ),
+        )
+        # durability observatory (block/durability.py): always
+        # constructed — the telemetry digest and the admin endpoint read
+        # it — spawned as a worker only when [durability] enabled
+        from ..block.durability import DurabilityScanner, ScanParams
+
+        self.durability_scanner = DurabilityScanner(
+            self.block_manager,
+            params=ScanParams(
+                tranquility=config.durability.tranquility,
+                scan_batch=config.durability.scan_batch,
+                interval_secs=config.durability.interval_secs,
+                stuck_error_secs=config.durability.stuck_error_secs,
+            ),
+            planner_fn=lambda: self.repair_planner,
+        )
+        self.bg_vars.register_rw(
+            "durability-tranquility",
+            lambda: str(self.durability_scanner.params.tranquility),
+            lambda v: setattr(
+                self.durability_scanner.params, "tranquility", max(0, int(v))
+            ),
+        )
+        self.bg_vars.register_rw(
+            "durability-interval-secs",
+            lambda: str(self.durability_scanner.params.interval_secs),
+            lambda v: setattr(
+                self.durability_scanner.params,
+                "interval_secs",
+                max(0.05, float(v)),
+            ),
+        )
+        # overload-control plane (api/overload.py + rpc/shedding.py):
+        # the admission controller exists from construction (the S3
+        # server reads it per request); the shedding controller spawns
+        # with the other workers
+        from ..api.overload import AdmissionController
+
+        self.overload = AdmissionController(config.overload)
+        self.shedder = None
+        self.bg_vars.register_rw(
+            "overload-max-in-flight",
+            lambda: str(self.config.overload.max_in_flight),
+            lambda v: setattr(
+                self.config.overload, "max_in_flight", max(1, int(v))
+            ),
+        )
+        self.bg = BackgroundRunner()
+        # flight recorder plane (utils/flight.py), wired in start()
+        self.flight_recorder = None
+        self.watchdog = None
+        # stall auto-capture (utils/profiler.py), opt-in via [admin] stall_profile
+        self.stall_profiler = None
+        # latency X-ray + canary prober (utils/latency.py, api/s3/canary.py)
+        self._latency_enabled = False
+        # traffic observatory (rpc/traffic.py), enabled in start()
+        self._traffic_enabled = False
+        # tenant observatory (rpc/tenant.py), enabled in start()
+        self._tenant_enabled = False
+        self.canary = None
+
+        # cluster telemetry plane (rpc/telemetry_digest.py): local digest
+        # collection piggybacked on the status gossip + S3 SLO budgets
+        from ..rpc.telemetry_digest import DigestCollector, SloTracker
+
+        self.telemetry = DigestCollector(self)
+        self.system.telemetry_collector = self.telemetry.collect
+        # rebalance observatory (rpc/transition.py): layout-transition
+        # flight deck + federated event timeline.  The events collector
+        # reads flight_recorder at call time — it is wired in start().
+        from ..rpc.transition import TransitionTracker, local_events
+
+        self.transition_tracker = TransitionTracker(self)
+        self.system.transition_tracker = self.transition_tracker
+        self.system.events_collector = lambda since, min_severity: (
+            local_events(self.flight_recorder, since, min_severity)
+        )
+        self.slo_tracker = SloTracker(
+            availability_target=config.admin.slo_availability_target,
+            latency_target_msec=config.admin.slo_latency_p99_target_msec,
+            window_secs=config.admin.slo_window_secs,
+        )
+        self._started = False
+
+    def ec_layout_warning(self, lv) -> str | None:
+        """EC(k,m) places k+m distinct pieces per block, so every active
+        layout version needs >= k+m storage nodes; an applied version
+        below that makes EC PUTs error until a wider layout lands (reads
+        and repair of existing blocks keep working — any k surviving
+        pieces decode).  Returns an operator warning string, or None.
+        See doc/ec-placement.md §"Shrinking below k+m"; reference
+        philosophy: src/rpc/layout/version.rs:177-249 invariant checks."""
+        npieces = self.block_manager.codec.n_pieces
+        if npieces <= 1:
+            return None
+        storage = [n for n, r in lv.roles.items() if r.capacity]
+        if len(storage) >= npieces:
+            return None
+        k = self.block_manager.codec.min_pieces
+        return (
+            f"WARNING: layout v{lv.version} has {len(storage)} storage "
+            f"node(s) but EC({k},{npieces - k}) needs {npieces} per block; "
+            f"EC writes will FAIL until a layout with >= {npieces} storage "
+            "nodes is applied (existing blocks stay readable/repairable "
+            "from any surviving k pieces)"
+        )
+
+    # --- lifecycle -----------------------------------------------------------
+
+    async def start(self) -> None:
+        host, port = _parse_addr(self.config.rpc_bind_addr)
+        await self.netapp.listen(host, port)
+        await self.system.start()
+        from ..utils.tracing import tracer
+
+        if self.config.admin.trace_sink:
+            tracer.configure(self.config.admin.trace_sink)
+            await tracer.start()
+        from ..utils import flight
+
+        adm = self.config.admin
+        if adm.flight_recorder:
+            self.flight_recorder = flight.SlowRequestRecorder(
+                threshold_ms=adm.slow_request_threshold_msec,
+                top_k=adm.slow_request_top_k,
+            )
+            # shared fanout, NOT a per-node tracer hook: several
+            # in-process nodes would otherwise buffer + serialize every
+            # span once per node (utils/flight.py _SharedSpanFanout)
+            flight.attach_recorder(self.flight_recorder)
+        if adm.event_loop_watchdog_threshold_msec:
+            self.watchdog = flight.EventLoopWatchdog(
+                threshold=adm.event_loop_watchdog_threshold_msec / 1000.0
+            )
+            if adm.stall_profile:
+                # stall auto-capture: every counted stall episode samples
+                # the wedged process from the watchdog thread and records
+                # a `loop-stall-profile` flight event (utils/profiler.py)
+                from ..utils.profiler import StallProfiler
+
+                self.stall_profiler = StallProfiler()
+                self.watchdog.on_stall = self.stall_profiler.on_stall
+            self.watchdog.start()
+        if adm.latency_xray:
+            # latency X-ray (utils/latency.py): phase attribution via a
+            # span-end hook — like the flight recorder, attaching it
+            # turns span creation on with no OTLP sink
+            from ..utils import latency
+
+            latency.enable()
+            self._latency_enabled = True
+        if adm.traffic_observatory:
+            # traffic observatory (rpc/traffic.py): refcounted singleton
+            # like the latency aggregator — the S3 request path records
+            # into it only while at least one node has it enabled
+            from ..rpc import traffic
+
+            traffic.enable(
+                topk=adm.traffic_topk,
+                halflife=adm.traffic_halflife_secs,
+            )
+            self._traffic_enabled = True
+        if adm.tenant_observatory:
+            # tenant observatory (rpc/tenant.py): per-authenticated-key
+            # usage + per-class SLO burn — same refcounted-singleton
+            # discipline as the traffic observatory
+            from ..rpc import tenant
+
+            tenant.enable(topk=adm.tenant_topk)
+            # pre-auth sheds carry only a claimed key id; resolve its
+            # class against THIS node's live config for the per-class
+            # shed counter (last in-process node to start wins — the
+            # config is shared in practice)
+            tenant.observatory.class_resolver = (
+                lambda kid: tenant.class_for(self.config, kid)[0]
+            )
+            self._tenant_enabled = True
+        self._register_gauges()
+        # uptime measures SERVING time: restamp at start(), not object
+        # construction (recovery work can run between the two)
+        self.telemetry.started_at = self.telemetry.clock()
+        self._started = True
+
+    def _register_gauges(self) -> None:
+        """Backlog/queue gauges, polled at scrape time (reference
+        src/block/metrics.rs, src/table/metrics.rs)."""
+        from ..utils.metrics import registry
+
+        # preserve keys tracked before start() (a canary spawned early):
+        # reassigning would orphan their registry entries at stop()
+        self._gauge_keys: list[tuple] = getattr(self, "_gauge_keys", [])
+
+        def reg(name: str, labels: tuple, fn) -> None:
+            registry.register_gauge(name, labels, fn)
+            self._gauge_keys.append((name, labels))
+
+        resync = self.block_manager.resync
+        reg("block_resync_queue_length", (), lambda: len(resync.queue))
+        reg("block_resync_errored_blocks", (), lambda: len(resync.errors))
+        # error AGE: transient blip vs stuck block (0 when the error set
+        # is empty or predates age tracking)
+        reg(
+            "block_resync_oldest_error_age_seconds", (),
+            lambda: float(resync.oldest_error_age_secs() or 0.0),
+        )
+        # durability observatory (block/durability.py): ledger classes,
+        # backlog, ETA, zone exposure, layout-sync progress.  `id` is
+        # process-unique (in-process multi-node registry sharing); fns
+        # raise before the first completed pass so samples are dropped,
+        # never fabricated.
+        from ..block.durability import DUR_CLASSES
+
+        sc = self.durability_scanner
+        gid = (("id", sc.gauge_id),)
+        for cls in DUR_CLASSES:
+            reg(
+                "durability_blocks",
+                (("class", cls),) + gid,
+                lambda c=cls: sc.published_class(c),
+            )
+        reg(
+            "durability_missing_pieces", gid,
+            lambda: sc.published_value("missingPieces"),
+        )
+        reg(
+            "durability_repair_eta_seconds", gid,
+            # float(None) raises on unknown ETA -> sample dropped
+            lambda: float(sc.repair_eta_secs()),
+        )
+        reg("durability_backlog_bytes", gid, lambda: sc.backlog_bytes())
+        reg(
+            "durability_zone_exposed_blocks", gid,
+            lambda: sc.worst_zone_exposed(),
+        )
+        reg(
+            "durability_layout_sync_fraction", gid,
+            lambda: sc.layout_sync_fraction(),
+        )
+        reg("durability_scan_age_seconds", gid, lambda: sc.scan_age_secs())
+        reg(
+            "block_ram_buffer_bytes", (),
+            lambda: self.block_manager.buffers.used,
+        )
+        for t in self.tables:
+            lbl = (("table_name", t.schema.table_name),)
+            reg(
+                "table_merkle_updater_todo_queue_length", lbl,
+                lambda d=t.data: len(d.merkle_todo),
+            )
+            reg(
+                "table_gc_todo_queue_length", lbl,
+                lambda d=t.data: len(d.gc_todo),
+            )
+        reg(
+            "cluster_connected_nodes", (),
+            lambda: len(self.system.peering.connected_peers()),
+        )
+        # overload-control plane: current degradation-ladder level (0 =
+        # healthy) and live in-flight admitted requests
+        reg(
+            "overload_ladder_level", (),
+            lambda: float(self.shedder.level if self.shedder else 0),
+        )
+        reg("api_in_flight_requests", (), lambda: float(self.overload.in_flight))
+        # SLO error budgets (rpc/telemetry_digest.py SloTracker), scrape-
+        # time so the rolling window advances even without digest traffic
+        for kind in ("availability", "latency_p99"):
+            lbl = (("slo", kind),)
+            reg(
+                "slo_error_budget_remaining", lbl,
+                lambda k=kind: self.slo_tracker.compute()[k]["budget_remaining"],
+            )
+            reg(
+                "slo_burn_rate", lbl,
+                lambda k=kind: self.slo_tracker.compute()[k]["burn_rate"],
+            )
+
+    def spawn_workers(self) -> None:
+        for t in self.tables:
+            t.spawn_workers(self.bg)
+        self.block_manager.spawn_workers(self.bg)
+        from .s3.lifecycle_worker import LifecycleWorker
+        from .snapshot import SnapshotWorker
+
+        self.bg.spawn(LifecycleWorker(self, metadata_dir=self.config.metadata_dir))
+        if self.config.metadata_auto_snapshot_interval:
+            self.bg.spawn(SnapshotWorker(self))
+        if self.config.overload.enabled:
+            # SLO-driven shedding controller (rpc/shedding.py): walks
+            # the degradation ladder off the local burn-rate/loop-lag
+            # signals, acting through the live BgVars + admission tiers
+            from ..rpc.shedding import SheddingController
+
+            self.shedder = SheddingController(self)
+            self.bg.spawn(self.shedder)
+        if self.config.durability.enabled:
+            # durability observatory (block/durability.py): tranquilized
+            # rc-tree walk feeding the redundancy ledger + digest
+            self.bg.spawn(self.durability_scanner)
+        # restart-safe repair plane: a plan checkpointed mid-flight by a
+        # previous process resumes (ledger + cursor intact) instead of
+        # rescanning the cluster
+        from ..block.repair_plan import RepairPlanner
+
+        if (
+            self.config.repair.auto_resume
+            and self.block_manager.codec.n_pieces > 1
+            and RepairPlanner.resumable(self.config.metadata_dir)
+        ):
+            self.launch_repair_plan()
+
+    # --- canary prober --------------------------------------------------------
+
+    def spawn_canary(self, endpoint: str):
+        """Start the background canary prober against this node's own S3
+        frontend (`endpoint`).  Called by the daemon once the S3 server
+        is listening; tests call it directly.  Registers the
+        `canary_healthy{id}` gauge at spawn (unregistered at stop() via
+        _gauge_keys, process-unique id) and the `canary-*` live BgVars."""
+        from ..api.s3.canary import CanaryWorker
+        from ..utils.metrics import registry
+
+        adm = self.config.admin
+        w = CanaryWorker(
+            self,
+            endpoint,
+            interval=adm.canary_interval_secs,
+            object_bytes=adm.canary_object_bytes,
+            bucket=adm.canary_bucket,
+        )
+        self.canary = w
+        self.bg.spawn(w)
+        self.bg_vars.register_rw(
+            "canary-interval-secs",
+            lambda: str(w.interval),
+            lambda v: setattr(w, "interval", max(0.05, float(v))),
+        )
+        self.bg_vars.register_rw(
+            "canary-object-bytes",
+            lambda: str(w.object_bytes),
+            lambda v: setattr(w, "object_bytes", max(1, int(v))),
+        )
+        lbl = (("id", w.gauge_id),)
+        # fn raising on None (no cycle yet) drops the sample at scrape
+        registry.register_gauge(
+            "canary_healthy", lbl, lambda: float(w.healthy)
+        )
+        # _gauge_keys normally exists by now (start() ran); a canary
+        # spawned before start() must not crash, just track its key
+        self._gauge_keys = getattr(self, "_gauge_keys", [])
+        self._gauge_keys.append(("canary_healthy", lbl))
+        return w
+
+    # --- repair plane ---------------------------------------------------------
+
+    def launch_repair_plan(self, fresh: bool = False):
+        """Start (or resume) the batched-reconstruction planner; admin
+        `POST /v1/repair/plan/launch` and `cli repair plan launch`."""
+        from ..block.repair_plan import RepairPlanner
+
+        if self.block_manager.codec.n_pieces <= 1:
+            raise ValueError(
+                "repair planner requires an erasure-coded block codec "
+                "(replication_mode = ec:k:m)"
+            )
+        if self.repair_planner is not None and not self.repair_planner.finished:
+            raise ValueError("a repair plan is already running")
+        planner = RepairPlanner(
+            self.block_manager,
+            metadata_dir=self.config.metadata_dir,
+            params=self.repair_params,
+            fresh=fresh,
+        )
+        self.repair_planner = planner
+        self.bg.spawn(planner)
+        return planner
+
+    def repair_plan_status(self) -> dict:
+        from ..block.repair_plan import RepairPlanner
+
+        p = self.repair_planner
+        out: dict = {"running": p is not None and not p.finished}
+        if p is not None:
+            out.update(p.status_full())
+            out["resumed"] = p.resumed
+        else:
+            out["resumable"] = RepairPlanner.resumable(self.config.metadata_dir)
+        out["params"] = {
+            "tranquility": self.repair_params.tranquility,
+            "bytesInFlight": self.repair_params.bytes_in_flight,
+            "batchBlocks": self.repair_params.batch_blocks,
+        }
+        return out
+
+    def overload_status(self) -> dict:
+        """Admission + ladder state (admin GET /v1/overload, admin-RPC
+        `overload status`, `cli overload status`)."""
+        out = {
+            "node": self.node_id.hex(),
+            "admission": self.overload.status(),
+            "ladder": (
+                self.shedder.status_full() if self.shedder is not None else None
+            ),
+        }
+        return out
+
+    async def stop(self) -> None:
+        from ..utils.tracing import tracer
+
+        if self.watchdog is not None:
+            self.watchdog.stop()
+            self.watchdog = None
+        self.stall_profiler = None
+        if self.flight_recorder is not None:
+            from ..utils import flight
+
+            flight.detach_recorder(self.flight_recorder)
+            self.flight_recorder = None
+        if self._latency_enabled:
+            from ..utils import latency
+
+            latency.disable()
+            self._latency_enabled = False
+        if self._traffic_enabled:
+            from ..rpc import traffic
+
+            traffic.disable()
+            self._traffic_enabled = False
+        if self._tenant_enabled:
+            from ..rpc import tenant
+
+            tenant.disable()
+            self._tenant_enabled = False
+        await self.bg.shutdown()
+        # after bg.shutdown(): the insert-queue workers are cancelled,
+        # nothing new enters the coalescers
+        for t in self.tables:
+            await t.close()
+        await self.block_manager.close()
+        if self.canary is not None:
+            # after bg.shutdown(): the worker is cancelled, nothing is
+            # mid-probe on this session anymore
+            await self.canary.stop_client()
+            self.canary = None
+        await self.system.stop()
+        await self.netapp.shutdown()
+        if self.config.admin.trace_sink:
+            await tracer.stop()
+        from ..utils.metrics import registry
+
+        for name, labels in getattr(self, "_gauge_keys", []):
+            registry.unregister_gauge(name, labels)
+        self.overload.close()  # per-tenant token gauges
+        self.db.close()

@@ -142,9 +142,17 @@ def encode_hash_tensor(
     K1 writes the parity into a contiguous tensor of its own, and K2
     hashes the data and parity pieces where they lie (`blake3_pieces`),
     in piece order — both on the current stream, with no host
-    synchronisation between them and no copy of the data shards."""
+    synchronisation between them and no copy of the data shards.
+    `encode_hash_tensor.launches` counts the dispatches that launched
+    that pair on the card."""
     parity = gf_bitmatmul_cuda(bitmat, x)
-    return parity, blake3_pieces(x, parity)
+    hashes = blake3_pieces(x, parity)
+    if x.device.type == "cuda":
+        _build.count_launch(encode_hash_tensor)
+    return parity, hashes
+
+
+encode_hash_tensor.launches = 0
 
 
 def ec_apply_mesh(

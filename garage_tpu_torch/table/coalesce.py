@@ -1,0 +1,262 @@
+"""InsertCoalescer: cross-caller coalescing of table quorum writes.
+
+The second half of the metadata fast path: once the meta ring
+shrinks a table write to 3 nodes, the per-RPC fixed cost (frame
+serialization, endpoint dispatch, per-peer health accounting) dominates
+a burst of small inserts — N concurrent PUTs each commit an object row,
+a version row and a block ref, and until now each row was its own
+`try_write_many_sets` fan-out.  This module coalesces them the way the
+CodecBatcher (block/codec_batch.py) coalesces codec dispatches:
+
+  - concurrent `insert_many` calls queue their serialized entries keyed
+    by DESTINATION — the exact per-version write-set list — and share
+    ONE ``["U", values]`` RPC per node per flush window.  Same-key
+    grouping is what makes this safe: quorum is accounted per layout
+    version's node set, so only entries with identical write sets may
+    share a dispatch (the same rule Table._insert_many always applied
+    within one call; the coalescer extends it across callers);
+
+  - a lone insert flushes after a bounded linger
+    (``[meta] coalesce_linger_msec``, default 1 ms — noise against a
+    quorum round-trip), while ``coalesce_max_entries`` flushes
+    immediately; both live-tunable (`worker set meta-coalesce-*`);
+
+  - a dispatch error fails every waiter that contributed to it (each
+    caller sees the same Quorum error it would have seen alone); a
+    cancelled caller abandons its entries without poisoning the batch.
+
+Entries are CRDT values — merge is commutative and idempotent — so
+batching across callers cannot change any merge outcome, only the RPC
+count.  The caller-side wait until the dispatch launches is attributed
+to the `meta_coalesce_wait` phase (utils/latency.py catalogue); the
+dispatch itself stays inside the caller's enclosing `meta_commit` span
+via the returned future.
+
+Metric families (doc/monitoring.md):
+
+  table_coalesce_batch_entries{table_name}     entries per dispatch (H)
+  table_coalesce_dispatch_total{table_name,flush}  dispatches by flush
+                                               reason (full | linger)
+  table_coalesce_coalesced_total{table_name}   entries that shared a
+                                               dispatch with another
+                                               caller's entries
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+
+from ..utils.aio import reap, spawn_supervised
+from ..utils.latency import phase_span
+from ..utils.metrics import SIZE_BUCKETS, registry
+
+logger = logging.getLogger("garage.table.coalesce")
+
+registry.set_buckets("table_coalesce_batch_entries", SIZE_BUCKETS)
+
+
+class _Group:
+    """Entries bound for one exact write-set list, across callers."""
+
+    __slots__ = (
+        "write_sets", "values", "waiters", "arrived", "started", "extra",
+    )
+
+    def __init__(self, write_sets: list[list[bytes]]):
+        self.write_sets = write_sets
+        self.values: list[bytes] = []
+        # one (future, n_entries) per contributing submit call
+        self.waiters: list[tuple[asyncio.Future, int]] = []
+        self.arrived = time.monotonic()
+        # set when the dispatch launches (ends meta_coalesce_wait)
+        self.started = asyncio.Event()
+        # non-quorum stripe holders (background best-effort copies)
+        self.extra: set[bytes] = set()
+
+
+class InsertCoalescer:
+    """One per Table.  The flusher task spawns lazily on first use and
+    is reaped by `close()` (Garage.stop()); knobs are read on every
+    flush cycle so `worker set` changes apply live."""
+
+    def __init__(
+        self,
+        table,
+        *,
+        linger_msec: float = 1.0,
+        max_entries: int = 256,
+    ):
+        self.table = table
+        self.linger_msec = float(linger_msec)
+        self.max_entries = int(max_entries)
+        self.pending: dict[bytes, _Group] = {}
+        self.wake = asyncio.Event()
+        self.task: asyncio.Task | None = None
+        self._dispatches: set[asyncio.Task] = set()
+        self._closed = False
+        self._lbl = (("table_name", table.schema.table_name),)
+
+    # --- submit side ----------------------------------------------------------
+
+    async def submit(
+        self,
+        groups: list[
+            tuple[bytes, list[list[bytes]], list[bytes], set[bytes]]
+        ],
+    ) -> None:
+        """`groups`: (destination key, write_sets, serialized values,
+        background nodes) tuples from one insert_many call.  Returns once
+        EVERY group's coalesced dispatch reached quorum; raises the
+        first failure."""
+        if self._closed:
+            raise RuntimeError("insert coalescer is closed")
+        loop = asyncio.get_running_loop()
+        waits: list[tuple[_Group, asyncio.Future]] = []
+        for key, write_sets, values, extra in groups:
+            g = self.pending.get(key)
+            if g is None:
+                g = self.pending[key] = _Group(write_sets)
+            fut = loop.create_future()
+            g.values.extend(values)
+            g.extra.update(extra)
+            g.waiters.append((fut, len(values)))
+            waits.append((g, fut))
+        self.wake.set()
+        if self.task is None:
+            self.task = spawn_supervised(
+                self._run(),
+                name=f"table-coalesce:{self.table.schema.table_name}",
+            )
+        try:
+            with phase_span("meta_coalesce_wait"):
+                for g, _fut in waits:
+                    await g.started.wait()
+            # the dispatch itself: stays in the caller's enclosing
+            # phase (meta_commit), like a direct quorum write would
+            await asyncio.gather(*[f for _g, f in waits])
+        except asyncio.CancelledError:
+            # abandon: the dispatch (if launched) completes for the
+            # other contributors; _dispatch skips finished futures.
+            # A future that already FAILED must have its exception
+            # retrieved here (cancel() is a no-op on a done future, and
+            # an unretrieved exception logs noise at GC).
+            for _g, f in waits:
+                if f.done():
+                    if not f.cancelled():
+                        f.exception()
+                else:
+                    f.cancel()
+            raise
+
+    # --- flusher --------------------------------------------------------------
+
+    def _due(self, g: _Group, now: float) -> bool:
+        return (
+            len(g.values) >= self.max_entries
+            or now - g.arrived >= self.linger_msec / 1e3
+        )
+
+    async def _run(self) -> None:
+        while not self._closed:
+            if not self.pending:
+                self.wake.clear()
+                if not self.pending:  # re-check after the clear
+                    await self.wake.wait()
+                continue
+            now = time.monotonic()
+            due = [k for k, g in self.pending.items() if self._due(g, now)]
+            for k in due:
+                g = self.pending.pop(k)
+                flush = (
+                    "full" if len(g.values) >= self.max_entries else "linger"
+                )
+                # dispatches run concurrently per destination group; the
+                # flusher never awaits one (a slow quorum must not stall
+                # the next window's coalescing).  Handles are kept so
+                # close() can reap an in-flight dispatch.
+                t = spawn_supervised(
+                    self._dispatch(g, flush),
+                    name=f"table-coalesce-rpc:{self.table.schema.table_name}",
+                )
+                self._dispatches.add(t)
+                t.add_done_callback(self._dispatches.discard)
+            if self.pending:
+                head = min(g.arrived for g in self.pending.values())
+                delay = max(0.0, head + self.linger_msec / 1e3 - now)
+                self.wake.clear()
+                try:
+                    await asyncio.wait_for(self.wake.wait(), delay)
+                except asyncio.TimeoutError:
+                    pass
+
+    async def _dispatch(self, g: _Group, flush: str) -> None:
+        g.started.set()
+        live = [(f, n) for f, n in g.waiters if not f.done()]
+        registry.observe(
+            "table_coalesce_batch_entries", self._lbl, float(len(g.values))
+        )
+        registry.incr(
+            "table_coalesce_dispatch_total", self._lbl + (("flush", flush),)
+        )
+        if len(live) > 1:
+            registry.incr(
+                "table_coalesce_coalesced_total", self._lbl,
+                by=len(g.values),
+            )
+        table = self.table
+        try:
+            await table.helper.try_write_many_sets(
+                table.endpoint,
+                g.write_sets,
+                ["U", g.values],
+                quorum=table.replication.write_quorum(),
+            )
+        except Exception as e:  # noqa: BLE001 — fails THIS batch's waiters
+            for f, _n in g.waiters:
+                if not f.done():
+                    f.set_exception(e)
+            return
+        except BaseException:
+            # dispatch task cancelled mid-quorum (close() during node
+            # stop): this group already left `pending`, so close() can't
+            # fail its futures — do it here or every contributing caller
+            # hangs forever on its future
+            for f, _n in g.waiters:
+                if not f.done():
+                    f.set_exception(
+                        RuntimeError("insert coalescer closed mid-dispatch")
+                    )
+            raise
+        for f, _n in g.waiters:
+            if not f.done():
+                f.set_result(None)
+        # the quorum held: ship the non-quorum stripe holders their
+        # best-effort copies (block_ref rc feed; anti-entropy backstop)
+        table.replicate_background(g.extra, g.values)
+
+    async def close(self) -> None:
+        """Fail pending waiters and reap the flusher (codec-batcher
+        close contract: resources registered at creation are released
+        here)."""
+        self._closed = True
+        self.wake.set()
+        for g in self.pending.values():
+            g.started.set()
+            for f, _n in g.waiters:
+                if not f.done():
+                    f.set_exception(RuntimeError("insert coalescer closed"))
+        self.pending.clear()
+        if self.task is not None:
+            await reap(
+                [self.task], log=logger,
+                what=f"table-coalesce {self.table.schema.table_name} flusher",
+            )
+            self.task = None
+        if self._dispatches:
+            await reap(
+                list(self._dispatches), log=logger,
+                what=f"table-coalesce {self.table.schema.table_name} dispatch",
+            )
+            self._dispatches.clear()

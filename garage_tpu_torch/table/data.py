@@ -1,0 +1,185 @@
+"""TableData: local storage of one table + its auxiliary queues.
+
+Reference src/table/data.rs.  Trees:
+  <name>            entries, keyed hash(pk) || sk, values = versioned msgpack
+  <name>:merkle_todo   key -> new value hash (or b"" for deletion)
+  <name>:merkle_tree   merkle trie nodes (see merkle.py)
+  <name>:gc_todo       [deadline_ms || key] -> value hash, tombstone queue
+  <name>:insert_queue  async local insert batching
+
+`update_entry` is THE mutation path: CRDT merge inside a transaction,
+merkle_todo enqueue, and the schema's `updated()` cascade — all atomic.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Callable, Iterator
+
+from ..db import Db, Tx, TxAbort
+from ..utils.data import blake2sum
+from ..utils.serde import pack, unpack
+from ..utils.time_util import now_msec
+from .replication import TableReplication
+from .schema import TableSchema
+
+logger = logging.getLogger("garage.table")
+
+GC_DELAY_MS = 24 * 3600 * 1000  # tombstones wait 24 h (reference gc.rs:33)
+
+
+class TableData:
+    def __init__(self, db: Db, schema: TableSchema, replication: TableReplication):
+        self.db = db
+        self.schema = schema
+        self.replication = replication
+        name = schema.table_name
+        self.store = db.open_tree(name)
+        self.merkle_todo = db.open_tree(f"{name}:merkle_todo")
+        self.merkle_tree = db.open_tree(f"{name}:merkle_tree")
+        self.gc_todo = db.open_tree(f"{name}:gc_todo")
+        self.insert_queue = db.open_tree(f"{name}:insert_queue")
+        # notified on local changes (merkle worker, insert queue worker)
+        self.change_waiters: list[Callable[[], None]] = []
+
+    # --- reads ---------------------------------------------------------------
+
+    def read_entry(self, pk: bytes, sk: bytes) -> bytes | None:
+        return self.store.get(self.schema.tree_key(pk, sk))
+
+    def read_range(
+        self,
+        pk: bytes,
+        start_sk: bytes | None,
+        filt: Any,
+        limit: int,
+        reverse: bool = False,
+    ) -> list[bytes]:
+        ph = self.schema.partition_hash(pk)
+        out: list[bytes] = []
+        if reverse:
+            # reverse enumeration starts AT start_sk (inclusive) and walks
+            # down; with no start_sk it covers the whole partition,
+            # including sort keys made of 0xff bytes
+            end = ph + start_sk + b"\x00" if start_sk is not None else _prefix_end(ph)
+            it = self.store.iter_range(ph, end, reverse=True)
+        else:
+            it = self.store.iter_range(ph + (start_sk or b""), _prefix_end(ph))
+        for k, v in it:
+            if not k.startswith(ph):
+                break
+            ent = self.decode(v)
+            if self.schema.matches_filter(ent, filt):
+                out.append(v)
+            if len(out) >= limit:
+                break
+        return out
+
+    def decode(self, value: bytes):
+        return self.schema.decode_entry(unpack(value))
+
+    def encode(self, entry) -> bytes:
+        return pack(self.schema.encode_entry(entry))
+
+    # --- writes --------------------------------------------------------------
+
+    def update_entry(self, entry_value: bytes) -> bool:
+        """CRDT-merge a serialized entry into local storage.
+        Returns True if the stored value changed."""
+        entry = self.decode(entry_value)
+        pk = self.schema.entry_partition_key(entry)
+        sk = self.schema.entry_sort_key(entry)
+        key = self.schema.tree_key(pk, sk)
+
+        def txf(tx: Tx) -> bool:
+            old_v = tx.get(self.store, key)
+            if old_v is not None:
+                old = self.decode(old_v)
+                new = self.schema.merge_entries(self.decode(old_v), self.decode(entry_value))
+            else:
+                old = None
+                new = self.decode(entry_value)
+            new_v = self.encode(new)
+            if old_v == new_v:
+                raise TxAbort(value=False)
+            tx.insert(self.store, key, new_v)
+            tx.insert(self.merkle_todo, key, blake2sum(new_v))
+            if self.schema.is_tombstone(new):
+                deadline = now_msec() + GC_DELAY_MS
+                tx.insert(
+                    self.gc_todo,
+                    deadline.to_bytes(8, "big") + key,
+                    blake2sum(new_v),
+                )
+            self.schema.updated(tx, old, new)
+            return True
+
+        changed = self.db.transaction(txf)
+        if changed:
+            self._notify()
+        return changed
+
+    def delete_if_equal_hash(self, key: bytes, vhash: bytes) -> bool:
+        """Phase-3 GC deletion: remove the entry only if its value still
+        hashes to vhash (reference gc.rs DeleteIfEqualHash)."""
+
+        def txf(tx: Tx) -> bool:
+            cur = tx.get(self.store, key)
+            if cur is None or blake2sum(cur) != vhash:
+                raise TxAbort(value=False)
+            old = self.decode(cur)
+            tx.remove(self.store, key)
+            tx.insert(self.merkle_todo, key, b"")  # b"" = deleted
+            self.schema.updated(tx, old, None)
+            return True
+
+        changed = self.db.transaction(txf)
+        if changed:
+            self._notify()
+        return changed
+
+    # --- insert queue (reference table/queue.rs) ------------------------------
+
+    def queue_insert(self, entry, tx: Tx | None = None) -> None:
+        """Cheap local enqueue; the InsertQueueWorker batches these into
+        real quorum inserts.  Pass `tx` when called from an updated() hook
+        so the enqueue commits atomically with the triggering write."""
+        v = self.encode(entry)
+        k = now_msec().to_bytes(8, "big") + blake2sum(v)[:8]
+        if tx is not None:
+            tx.insert(self.insert_queue, k, v)
+        else:
+            self.insert_queue.insert(k, v)
+        self._notify()
+
+    # --- iteration (sync / gc workers) ---------------------------------------
+
+    def iter_partition(self, partition_idx: int) -> Iterator[tuple[bytes, bytes]]:
+        """All entries whose tree key falls in this sync partition."""
+        start, end = self.partition_range(partition_idx)
+        yield from self.store.iter_range(start, end)
+
+    def partition_range(self, partition_idx: int) -> tuple[bytes, bytes | None]:
+        if getattr(self.replication, "full_copy", False):
+            return (b"", None)  # single partition covers all keys
+        start = bytes([partition_idx])
+        end = bytes([partition_idx + 1]) if partition_idx < 255 else None
+        return (start, end)
+
+    def _notify(self) -> None:
+        for fn in self.change_waiters:
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — one broken waiter must not
+                # starve the rest, but a raising callback is a real bug
+                logger.exception("table change waiter failed")
+
+
+def _prefix_end(prefix: bytes) -> bytes | None:
+    p = bytearray(prefix)
+    while p:
+        if p[-1] != 0xFF:
+            p[-1] += 1
+            return bytes(p)
+        p.pop()
+    return None

@@ -1,0 +1,267 @@
+"""Anti-entropy: Merkle-diff sync + partition offload.
+
+Reference src/table/sync.rs:31-627.  Periodically (and on layout change),
+for every partition this node stores, compare Merkle roots with the other
+storage nodes and push items under diverging subtrees.  Partitions this
+node no longer owns are fully pushed to their new owners, then deleted
+locally ("offload").
+
+RPC ops on `table/<name>/sync`:
+  ["Root", partition]          -> root hash
+  ["Node", partition, prefix]  -> merkle node
+  ["Items", [values...]]       -> CRDT-apply serialized entries
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+
+from ..net.message import PRIO_BACKGROUND, Req, Resp
+from ..utils.background import Worker, WorkerState
+from ..utils.metrics import registry
+
+logger = logging.getLogger("garage.table.sync")
+
+ANTI_ENTROPY_INTERVAL = 600.0  # 10 min (reference sync.rs:31)
+ITEMS_BATCH = 64
+
+
+class TableSyncer:
+    def __init__(self, table):
+        self.table = table
+        self.data = table.data
+        self.merkle = table.merkle
+        self.endpoint = table.system.netapp.endpoint(
+            f"table/{table.schema.table_name}/sync"
+        )
+        self.endpoint.set_handler(self._handle)
+        self._layout_changed = asyncio.Event()
+        # runtime-tunable via `worker set sync-interval-secs` (BgVars)
+        self.anti_entropy_interval = ANTI_ENTROPY_INTERVAL
+        table.system.layout_manager.subscribe(self._on_layout_change)
+        table.system.layout_manager.register_sync_component(
+            f"table:{table.schema.table_name}"
+        )
+
+    def _on_layout_change(self) -> None:
+        self._layout_changed.set()
+
+    # --- rpc ------------------------------------------------------------------
+
+    async def _handle(self, from_id: bytes, req: Req) -> Resp:
+        op = req.body
+        if op[0] == "Root":
+            return Resp(self.merkle.root_hash(int(op[1])))
+        if op[0] == "Node":
+            return Resp(self.merkle.get_node(int(op[1]), bytes(op[2])))
+        if op[0] == "Items":
+            registry.incr(
+                "table_sync_items_received",
+                (("table_name", self.table.schema.table_name),),
+                by=len(op[1]),
+            )
+            for v in op[1]:
+                self.data.update_entry(bytes(v))
+            return Resp(None)
+        raise ValueError(f"unknown sync op {op[0]!r}")
+
+    # --- sync round -----------------------------------------------------------
+
+    async def sync_all_partitions(self) -> dict:
+        """One full anti-entropy round; returns stats."""
+        me = self.table.system.id
+        stats = {"partitions": 0, "pushed": 0, "offloaded": 0, "errors": 0}
+        owned = {p for p, _ in self.table.replication.local_partitions(me)}
+        for p in sorted(owned):
+            stats["partitions"] += 1
+            nodes = self._partition_nodes(p)
+            for node in nodes:
+                if node == me:
+                    continue
+                try:
+                    stats["pushed"] += await self._sync_with(p, node)
+                except Exception as e:  # noqa: BLE001
+                    stats["errors"] += 1
+                    logger.debug("sync p%d with %s failed: %r", p, node.hex()[:8], e)
+        # offload: local data in partitions we don't own
+        await self._offload(owned, stats)
+        return stats
+
+    def _partition_nodes(self, p: int) -> list[bytes]:
+        from .replication import partition_first_hash
+
+        return self.table.replication.storage_nodes(partition_first_hash(p))
+
+    async def _sync_with(self, p: int, node: bytes) -> int:
+        my_root = self.merkle.root_hash(p)
+        resp = await self.endpoint.call(
+            node, ["Root", p], prio=PRIO_BACKGROUND, timeout=60.0
+        )
+        if bytes(resp.body or b"") == my_root:
+            return 0
+        return await self._push_diff(p, node, b"")
+
+    async def _push_diff(self, p: int, node: bytes, prefix: bytes) -> int:
+        """Push every local item under `prefix` whose remote counterpart is
+        missing or different."""
+        local = self.merkle.get_node(p, prefix)
+        if local is None:
+            return 0
+        resp = await self.endpoint.call(
+            node, ["Node", p, prefix], prio=PRIO_BACKGROUND, timeout=60.0
+        )
+        remote = resp.body
+        from .merkle import node_hash
+
+        if remote is not None and node_hash(remote) == node_hash(local):
+            return 0
+        if local[0] == "L":
+            return await self._push_items(node, [bytes(local[1])])
+        # intermediate: recurse into children; push term item if present
+        pushed = 0
+        if local[2] is not None:
+            pushed += await self._push_items(node, [bytes(local[2][0])])
+        for b, _h in local[1]:
+            pushed += await self._push_diff(p, node, prefix + bytes([int(b)]))
+        return pushed
+
+    async def _push_items(self, node: bytes, keys: list[bytes]) -> int:
+        values = []
+        for k in keys:
+            v = self.data.store.get(k)
+            if v is not None:
+                values.append(v)
+        for i in range(0, len(values), ITEMS_BATCH):
+            batch = values[i : i + ITEMS_BATCH]
+            await self.endpoint.call(
+                node, ["Items", batch], prio=PRIO_BACKGROUND, timeout=60.0
+            )
+            # count per delivered batch, so a push that dies midway still
+            # reports the items that actually reached the peer
+            registry.incr(
+                "table_sync_items_sent",
+                (("table_name", self.table.schema.table_name),),
+                by=len(batch),
+            )
+        return len(values)
+
+    async def _offload(self, owned: set[int], stats: dict) -> None:
+        """Push partitions we no longer own to their owners, delete local
+        copy afterwards (reference sync.rs offload path)."""
+        from .replication import partition_first_hash
+
+        seen_parts: set[int] = set()
+        for key, _v in self.data.store.iter_range():
+            part = self.data.replication.partition_of(key[:32])
+            if part in owned or part in seen_parts:
+                continue
+            seen_parts.add(part)
+        from ..utils.data import blake2sum
+
+        for p in sorted(seen_parts):
+            nodes = self._partition_nodes(p)
+            if not nodes:
+                continue
+            snapshot: list[tuple[bytes, bytes, bytes]] = []  # (key, value, vhash)
+            start, end = self.data.partition_range(p)
+            for k, v in self.data.store.iter_range(start, end):
+                snapshot.append((k, v, blake2sum(v)))
+            values = [v for _k, v, _h in snapshot]
+            ok = True
+            for node in nodes:
+                try:
+                    for i in range(0, len(values), ITEMS_BATCH):
+                        await self.endpoint.call(
+                            node,
+                            ["Items", values[i : i + ITEMS_BATCH]],
+                            prio=PRIO_BACKGROUND,
+                            timeout=60.0,
+                        )
+                except Exception as e:  # noqa: BLE001
+                    ok = False
+                    stats["errors"] += 1
+                    logger.debug("offload p%d to %s failed: %r", p, node.hex()[:8], e)
+            if ok:
+                # hash-checked transactional delete: an entry updated while
+                # we were pushing (its value hash changed) is NOT deleted —
+                # the new value was never pushed and would be lost; it goes
+                # in the next offload round instead (reference
+                # sync.rs offload_items / delete_if_equal)
+                n_del = 0
+                for k, _v, vh in snapshot:
+                    if self.data.delete_if_equal_hash(k, vh):
+                        n_del += 1
+                stats["offloaded"] += n_del
+
+    # --- worker ---------------------------------------------------------------
+
+    def worker(self) -> Worker:
+        return _SyncWorker(self)
+
+
+class _SyncWorker(Worker):
+    def __init__(self, syncer: TableSyncer):
+        self.syncer = syncer
+        self.last_sync = 0.0
+        self.last_stats: dict = {}
+        self._last_placement: bytes | None = None
+        self._retry_backoff = 0.0  # grows while rounds keep failing
+
+    def name(self) -> str:
+        return f"sync:{self.syncer.table.schema.table_name}"
+
+    def status(self):
+        return dict(self.last_stats, last=self.last_sync)
+
+    async def work(self):
+        now = time.monotonic()
+        lm = self.syncer.table.system.layout_manager
+        due = now - self.last_sync >= self.syncer.anti_entropy_interval
+        # placement digest captured BEFORE the round: a version applied
+        # mid-round changes the live digest, so the next wakeup re-rounds
+        placement = lm.history.placement_digest()
+        if self.syncer._layout_changed.is_set():
+            self.syncer._layout_changed.clear()
+        # layout notifications also fire for tracker-only gossip
+        # (ack/sync movement), which happens constantly under write
+        # load; a full root-compare round (~512 RPCs/table) is only
+        # warranted when the PLACEMENT changed.  Checked OUTSIDE the
+        # event gate: a failed round leaves _last_placement stale, so
+        # wakeups keep retrying until a round completes cleanly — with
+        # exponential backoff so a long peer outage doesn't amplify
+        # into back-to-back full rounds against the dead node
+        if (
+            placement != self._last_placement
+            and now - self.last_sync >= self._retry_backoff
+        ):
+            due = True
+        if not due:
+            return WorkerState.IDLE
+        self.last_sync = now
+        # the round guarantees convergence only up to the version current
+        # when it STARTED; a layout applied mid-round re-triggers via
+        # _layout_changed, and the next round reports the newer version
+        v0 = lm.history.current().version
+        self.last_stats = await self.syncer.sync_all_partitions()
+        if self.last_stats.get("errors", 0) == 0:
+            # only a CLEAN round retires the trigger — a failed round
+            # (partitioned peer) keeps retrying on subsequent wakeups
+            # instead of stalling until the 10-minute interval
+            self._last_placement = placement
+            self._retry_backoff = 0.0
+            lm.component_synced(
+                f"table:{self.syncer.table.schema.table_name}", v0
+            )
+        else:
+            self._retry_backoff = min(
+                self._retry_backoff * 2 or 10.0, self.syncer.anti_entropy_interval
+            )
+        return WorkerState.IDLE
+
+    async def wait_for_work(self) -> None:
+        try:
+            await asyncio.wait_for(self.syncer._layout_changed.wait(), timeout=10.0)
+        except asyncio.TimeoutError:
+            pass

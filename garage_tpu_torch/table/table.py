@@ -1,0 +1,348 @@
+"""Table: quorum reads/writes over TableData + RPC endpoint.
+
+Reference src/table/table.rs:36-139.  RPC ops (one endpoint per table):
+  ["U",  [values...]]                       replicate serialized entries
+  ["RE", pk, sk]                            read one entry
+  ["RR", pk, start_sk, filt, limit, rev]    read a range
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any
+
+from ..db import Db
+from ..net.message import PRIO_BACKGROUND, PRIO_NORMAL, Req, Resp
+from ..rpc.rpc_helper import RpcHelper
+from ..rpc.system import System
+from ..utils.background import BackgroundRunner, spawn
+from ..utils.error import Quorum
+from ..utils.metrics import registry
+from ..utils.serde import pack
+from .coalesce import InsertCoalescer
+from .data import TableData
+from .gc import TableGc
+from .merkle import MerkleUpdater, MerkleWorker
+from .queue import InsertQueueWorker
+from .replication import TableReplication
+from .schema import TableSchema
+from .sync import TableSyncer
+
+logger = logging.getLogger("garage.table")
+
+
+class Table:
+    def __init__(
+        self,
+        system: System,
+        helper: RpcHelper,
+        db: Db,
+        schema: TableSchema,
+        replication: TableReplication,
+    ):
+        self.system = system
+        self.helper = helper
+        self.schema = schema
+        self.replication = replication
+        self.data = TableData(db, schema, replication)
+        self.merkle = MerkleUpdater(self.data)
+        self.endpoint = system.netapp.endpoint(f"table/{schema.table_name}")
+        self.endpoint.set_handler(self._handle)
+        self.syncer = TableSyncer(self)
+        self.gc = TableGc(self)
+        # cross-caller insert coalescing (table/coalesce.py):
+        # None = direct per-call quorum writes.  The composition root
+        # enables it from `[meta] coalesce_*` via enable_coalescing().
+        self.coalescer: InsertCoalescer | None = None
+        # per-table op metrics (reference src/table/metrics.rs:
+        # table_get/put_request_counter+duration, internal update counter)
+        self._mlbl = (("table_name", schema.table_name),)
+
+    def enable_coalescing(
+        self, *, linger_msec: float = 1.0, max_entries: int = 256
+    ) -> InsertCoalescer:
+        self.coalescer = InsertCoalescer(
+            self, linger_msec=linger_msec, max_entries=max_entries
+        )
+        return self.coalescer
+
+    async def close(self) -> None:
+        if self.coalescer is not None:
+            await self.coalescer.close()
+
+    def spawn_workers(self, bg: BackgroundRunner) -> None:
+        bg.spawn(MerkleWorker(self.merkle))
+        bg.spawn(self.syncer.worker())
+        bg.spawn(self.gc.worker())
+        bg.spawn(InsertQueueWorker(self))
+
+    # --- writes ---------------------------------------------------------------
+
+    async def insert(self, entry) -> None:
+        await self.insert_many([entry])
+
+    async def insert_many(self, entries: list) -> None:
+        """Quorum write: group by placement hash, write each group to every
+        active layout version's node set (reference table.rs:106-139)."""
+        from ..utils.tracing import span
+
+        registry.incr("table_put_request_counter", self._mlbl)
+        with span("table:insert", table=self.schema.table_name, n=len(entries)):
+            with registry.timer("table_put_request_duration", self._mlbl):
+                await self._insert_many(entries)
+
+    async def _insert_many(self, entries: list) -> None:
+        by_sets: dict[
+            bytes, tuple[list[list[bytes]], list[bytes], set[bytes]]
+        ] = {}
+        for e in entries:
+            pk = self.schema.entry_partition_key(e)
+            h = self.schema.partition_hash(pk)
+            v = pack(self.schema.encode_entry(e))
+            write_sets = self.replication.write_sets(h)
+            # group by the exact per-version sets (not their union): quorum
+            # is accounted per set, so two hashes may only share a batch if
+            # their sets are identical
+            key = pack([sorted(s) for s in write_sets])
+            if key not in by_sets:
+                by_sets[key] = (write_sets, [], set())
+            by_sets[key][1].append(v)
+            # non-quorum stripe holders (block_ref only): best-effort
+            # background copies so their rc trees see the block promptly
+            by_sets[key][2].update(self.replication.background_nodes(h))
+        if self.coalescer is not None:
+            # cross-caller path: same-destination groups from concurrent
+            # insert_many calls share one ["U", values] RPC per node
+            await self.coalescer.submit(
+                [
+                    (k, ws, vals, extra)
+                    for k, (ws, vals, extra) in by_sets.items()
+                ]
+            )
+            return
+        for write_sets, values, extra in by_sets.values():
+            await self.helper.try_write_many_sets(
+                self.endpoint,
+                write_sets,
+                ["U", values],
+                quorum=self.replication.write_quorum(),
+            )
+            self.replicate_background(extra, values)
+
+    def replicate_background(
+        self, nodes: set[bytes] | list[bytes], values: list[bytes]
+    ) -> None:
+        """Fire-and-forget ["U", values] to non-quorum storage nodes
+        (TableReplication.background_nodes).  call_many returns per-node
+        exceptions as data, so a dead holder costs nothing; anti-entropy
+        repairs whatever these misses leave behind."""
+        if not nodes:
+            return
+        registry.incr(
+            "table_background_replicate_total", self._mlbl, by=len(nodes)
+        )
+        spawn(
+            self.helper.call_many(
+                self.endpoint, list(nodes), ["U", values], prio=PRIO_BACKGROUND
+            )
+        )
+
+    def queue_insert(self, entry, tx=None) -> None:
+        """Asynchronous local insert (reference table/queue.rs): cheap,
+        batched into quorum writes by the InsertQueueWorker."""
+        self.data.queue_insert(entry, tx=tx)
+
+    # --- reads ----------------------------------------------------------------
+
+    async def get(self, pk: bytes, sk: bytes):
+        from ..utils.tracing import span
+
+        registry.incr("table_get_request_counter", self._mlbl)
+        with span("table:get", table=self.schema.table_name):
+            with registry.timer("table_get_request_duration", self._mlbl):
+                return await self._get(pk, sk)
+
+    def _race_reads(self, nodes: list[bytes], quorum: int) -> bool:
+        """Meta-ring reads (3 candidates, quorum 2) RACE the whole
+        ring: the surplus request is one tiny frame, and the quorum
+        completes on the FASTEST repliers instead of the ones the
+        preference order happened to pick — a straight latency cut on
+        the index_read path.  Wide candidate sets keep the staggered
+        probe, which exists to keep read traffic off far nodes."""
+        return len(nodes) <= quorum + 1
+
+    async def _get(self, pk: bytes, sk: bytes):
+        h = self.schema.partition_hash(pk)
+        nodes = self.replication.read_nodes(h)
+        quorum = self.replication.read_quorum()
+        resps = await self.helper.try_call_many(
+            self.endpoint,
+            nodes,
+            ["RE", pk, sk],
+            quorum=quorum,
+            all_at_once=self._race_reads(nodes, quorum),
+        )
+        values = [r.body for r in resps]
+        ent = None
+        n_some = 0
+        for v in values:
+            if v is not None:
+                n_some += 1
+                dec = self.data.decode(v)
+                ent = dec if ent is None else self.schema.merge_entries(ent, dec)
+        if ent is not None and (n_some < len(values) or _differ(values)):
+            # read-repair: push the merged value back to stale replicas
+            spawn(self._repair([ent], nodes))
+        return ent
+
+    async def get_merged_all(self, pk: bytes, sk: bytes):
+        """Inconsistency-escalation read: merge THIS key from EVERY
+        reachable replica — no quorum short-circuit — and read-repair
+        the merge back.  Used when a quorum read surfaced a state that
+        contradicts another table (e.g. an object row resolving a
+        tombstoned version, tests/test_put_abort_race.py): the row that
+        explains it may exist only on the replica the staggered quorum
+        read never consulted.  Requires at least read_quorum replies (a
+        weaker answer could go BACKWARD vs. the quorum read that
+        triggered the escalation)."""
+        registry.incr("table_get_request_counter", self._mlbl)
+        h = self.schema.partition_hash(pk)
+        nodes = self.replication.read_nodes(h)
+        results = await self.helper.call_many(
+            self.endpoint, nodes, ["RE", pk, sk]
+        )
+        values = [r.body for _n, r in results if not isinstance(r, Exception)]
+        if len(values) < self.replication.read_quorum():
+            errs = [
+                f"{n.hex()[:8]}: {r!r}"
+                for n, r in results
+                if isinstance(r, Exception)
+            ]
+            raise Quorum(self.replication.read_quorum(), len(values), errs)
+        ent = None
+        n_some = 0
+        for v in values:
+            if v is not None:
+                n_some += 1
+                dec = self.data.decode(v)
+                ent = dec if ent is None else self.schema.merge_entries(ent, dec)
+        if ent is not None and (n_some < len(values) or _differ(values)):
+            spawn(self._repair([ent], nodes))
+        return ent
+
+    async def get_range(
+        self,
+        pk: bytes,
+        start_sk: bytes | None = None,
+        filt: Any = None,
+        limit: int = 1000,
+        reverse: bool = False,
+    ) -> list:
+        registry.incr("table_range_request_counter", self._mlbl)
+        h = self.schema.partition_hash(pk)
+        nodes = self.replication.read_nodes(h)
+        quorum = self.replication.read_quorum()
+        with registry.timer("table_range_request_duration", self._mlbl):
+            resps = await self.helper.try_call_many(
+                self.endpoint,
+                nodes,
+                ["RR", pk, start_sk, filt, limit, reverse],
+                quorum=quorum,
+                all_at_once=self._race_reads(nodes, quorum),
+            )
+        merged: dict[bytes, Any] = {}
+        seen_values: dict[bytes, set[bytes]] = {}
+        for r in resps:
+            for v in r.body:
+                ent = self.data.decode(v)
+                sk = self.schema.entry_sort_key(ent)
+                if sk in merged:
+                    merged[sk] = self.schema.merge_entries(merged[sk], ent)
+                else:
+                    merged[sk] = ent
+                seen_values.setdefault(sk, set()).add(bytes(v))
+        if len(resps) > 1:
+            to_repair = [
+                merged[sk]
+                for sk, vals in seen_values.items()
+                if len(vals) > 1
+            ]
+            if to_repair:
+                spawn(self._repair(to_repair, nodes))
+        out = sorted(merged.items(), key=lambda kv: kv[0], reverse=reverse)
+        ents = [e for _sk, e in out if self.schema.matches_filter(e, filt)]
+        return ents[:limit]
+
+    async def get_all_local(self, filt: Any = None, limit: int = 100_000) -> list:
+        """Enumerate ALL local entries across partitions.  Correct for
+        full-copy tables (every node holds everything) — the control-plane
+        list operations (buckets, keys, aliases) use this; a per-partition
+        get_range cannot enumerate tables whose partition key is the
+        entry id itself."""
+        out = []
+        for _k, v in self.data.store.iter_range():
+            ent = self.data.decode(v)
+            if self.schema.matches_filter(ent, filt):
+                out.append(ent)
+                if len(out) >= limit:
+                    break
+        return out
+
+    async def get_local(self, pk: bytes, sk: bytes):
+        """Read THIS replica's copy only — no quorum, no read-repair.
+        For replica-side handlers (e.g. K2V polls) where this node is
+        itself one of the replicas being polled."""
+        v = self.data.read_entry(pk, sk)
+        return self.data.decode(v) if v is not None else None
+
+    async def get_range_local(
+        self,
+        pk: bytes,
+        start_sk: bytes | None = None,
+        filt: Any = None,
+        limit: int = 1000,
+    ) -> list:
+        vals = self.data.read_range(pk, start_sk, filt, limit, False)
+        return [self.data.decode(v) for v in vals]
+
+    async def _repair(self, entries: list, nodes: list[bytes]) -> None:
+        try:
+            values = [pack(self.schema.encode_entry(e)) for e in entries]
+            await self.helper.try_call_many(
+                self.endpoint,
+                nodes,
+                ["U", values],
+                quorum=len(nodes),
+                prio=PRIO_NORMAL,
+            )
+        except Exception as e:  # noqa: BLE001
+            logger.debug("read-repair failed: %r", e)
+
+    # --- rpc handler ----------------------------------------------------------
+
+    async def _handle(self, from_id: bytes, req: Req) -> Resp:
+        op = req.body
+        if op[0] == "U":
+            registry.incr(
+                "table_internal_update_counter", self._mlbl, by=len(op[1])
+            )
+            for v in op[1]:
+                self.data.update_entry(bytes(v))
+            return Resp(None)
+        if op[0] == "RE":
+            return Resp(self.data.read_entry(bytes(op[1]), bytes(op[2])))
+        if op[0] == "RR":
+            vals = self.data.read_range(
+                bytes(op[1]),
+                bytes(op[2]) if op[2] is not None else None,
+                op[3],
+                int(op[4]),
+                bool(op[5]),
+            )
+            return Resp(vals)
+        raise ValueError(f"unknown table op {op[0]!r}")
+
+
+def _differ(values: list) -> bool:
+    norm = {bytes(v) for v in values if v is not None}
+    return len(norm) > 1

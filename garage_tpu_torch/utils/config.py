@@ -307,13 +307,15 @@ class MetaConfig:
 
 @dataclass
 class TpuConfig:
-    """Rebuild-specific: the TPU compute plane used by the EC block codec and
-    batched scrub hashing (no analog in the reference)."""
+    """Rebuild-specific: the device of the EC block codec and the batched
+    scrub hashing (no analog in the reference).  The section keeps the
+    reference's name so that one config file serves both packages; the
+    port reads `enable` and `platform` (`model/garage.py::codec_device`)."""
 
-    enable: bool = True  # use jax backend if available, else numpy fallback
-    platform: str | None = None  # force "tpu"/"cpu"; None = jax default
-    batch_blocks: int = 1024  # blocks aggregated per EC/hash dispatch
-    max_dispatch_bytes: int = 256 * 1024 * 1024  # RAM budget per dispatch
+    enable: bool = True  # false: the kernels' plain versions on the CPU
+    platform: str | None = None  # "cpu" as enable = false; anything else: the CUDA card
+    batch_blocks: int = 1024  # parsed, not read by the port
+    max_dispatch_bytes: int = 256 * 1024 * 1024  # parsed, not read by the port
 
 
 @dataclass

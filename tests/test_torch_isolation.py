@@ -4,7 +4,8 @@ module (module names matched exactly: `garage_tpu_torch` is not
 `garage_tpu`); every relative import resolves to a module of the port,
 apart from the lazy imports of modules not ported yet (`DEFERRED`); the
 card path holds no try/except that could fall back to a plain version,
-and neither does the scrub's call of kernel K2; and the entry points
+and neither does the scrub's call of kernel K2, nor a node's choice of
+its codec's device; and the entry points, a node's `Garage` among them,
 raise when CUDA is absent unless the caller asks for the CPU."""
 
 import ast
@@ -34,7 +35,6 @@ FORBIDDEN_TOP = ("jax", "jaxlib", "garage_tpu")
 DEFERRED = {
     ("garage_tpu_torch/db/open.py", "garage_tpu_torch.db.log_engine"),
     ("garage_tpu_torch/db/open.py", "garage_tpu_torch.db.native_engine"),
-    ("garage_tpu_torch/rpc/telemetry_digest.py", "garage_tpu_torch.api.s3.canary"),
 }
 
 
@@ -171,3 +171,56 @@ def test_entry_points_raise_without_cuda():
             make()
     # the CPU is taken only when asked for
     assert EcCodec(8, 3, device="cpu").device.type == "cpu"
+
+
+def test_garage_codec_choice_has_no_fallback():
+    """`Garage.__init__` and `codec_device` pick the codec's device with no
+    try/except around the choice or the codec's construction."""
+    tree = ast.parse((ROOT / "garage_tpu_torch/model/garage.py").read_text())
+    funcs = {n.name: n for n in ast.walk(tree)
+             if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+    for name in ("codec_device", "__init__"):
+        assert not [n for n in ast.walk(funcs[name]) if isinstance(n, ast.Try)], name
+
+
+def _garage_config(tmp_path, **tpu):
+    from garage_tpu_torch.utils.config import config_from_dict
+
+    d = {"metadata_dir": str(tmp_path / "meta"), "data_dir": str(tmp_path / "data"),
+         "db_engine": "memory", "replication_mode": "ec:2:1", "rpc_secret": "aa" * 32,
+         "rpc_bind_addr": "127.0.0.1:0"}
+    if tpu:
+        d["tpu"] = tpu
+    return config_from_dict(d)
+
+
+def test_garage_picks_the_card_unless_asked_for_the_cpu():
+    from garage_tpu_torch.model.garage import codec_device
+    from garage_tpu_torch.utils.config import TpuConfig
+
+    assert codec_device(TpuConfig(enable=False)) == "cpu"
+    assert codec_device(TpuConfig(platform="cpu")) == "cpu"
+    for tpu in (TpuConfig(), TpuConfig(platform="cuda"), TpuConfig(platform="tpu")):
+        if torch.cuda.is_available():
+            assert codec_device(tpu) == "cuda"
+        else:
+            with pytest.raises(RuntimeError):
+                codec_device(tpu)
+
+
+def test_garage_with_the_default_config_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    from garage_tpu_torch.model.garage import Garage
+
+    with pytest.raises(RuntimeError):
+        Garage(_garage_config(tmp_path / "default"))
+    with pytest.raises(RuntimeError):
+        Garage(_garage_config(tmp_path / "enabled", enable=True))
+    # nothing was opened before the choice
+    assert not (tmp_path / "default" / "meta").exists()
+    g = Garage(_garage_config(tmp_path / "cpu", enable=False))
+    try:
+        assert g.block_manager.codec.device.type == "cpu"
+    finally:
+        g.db.close()
