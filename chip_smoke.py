@@ -9,7 +9,7 @@ PyTorch version on the card at the shapes the main path gives it
 (tolerance 0: integer math), then drives the erasure-coded data plane,
 the block store through the entry points a storage node calls, and a
 cluster of whole nodes through the S3 API, at EC(8,3) with 1 MiB
-blocks:
+blocks, and a cluster of daemons, each a process of its own:
 
   1. device line: name, count, `nvidia-smi` name and power limit
   2. build: both kernels (and the replaced K2 design kept as a
@@ -79,11 +79,35 @@ blocks:
      launches, kernel seconds and dispatches; MiB/s; the codec batch
      sizes under S3 traffic; every response status (2xx but the one
      404); a cProfile of 16 more 4 MiB PUTs and GETs
-  9. one JSON line listing each kernel: launches in phase 5 (in phase 6
+  9. the daemons: 11 processes of `python -m garage_tpu_torch.cli
+     server` (tools/daemons.py), each with its own CUDA context on card
+     0 and its EcCodec there, EC(8,3), sqlite, metadata replicated 3
+     times, the config's defaults; S3 on daemons 0 and 1, K2V on daemon
+     0, the website on daemon 1, the admin API on each.  Configured by
+     CLI processes only (`node id`, `node connect`, `layout assign` x11,
+     `layout apply`, `key new`, `bucket create`, `bucket allow`, `bucket
+     website --allow`), then driven over HTTP with phase 8's objects and
+     clients: the 4 MiB and 1 KiB PUTs, GETs through the other endpoint
+     and a ranged GET, 256 K2V items inserted, read back as a batch and
+     one poll, a website GET; one daemon stopped by SIGTERM (the lowest
+     data rank that serves no endpoint; it must exit 0), the degraded
+     GETs and website GETs; that daemon restarted with its data dir
+     wiped and `repair blocks` until its piece files are byte-identical
+     and `cluster durability` reports no missing pieces; 8 sampled
+     blocks' piece files against the plain versions on the card; 3
+     flipped piece bytes on one daemon found by `repair scrub start`
+     (exactly 3).  Each part's wall beside phase 8's, and the daemons'
+     K1/K2/K3 launches read from their `/metrics`
+     (`cuda_kernel_launches_total`); every codec dispatch must be on
+     the CUDA platform; boot time, CLI call times, card memory, loop
+     lag, request and table latencies, every response status; SIGTERM
+     to all, each exits 0
+  10. one JSON line listing each kernel: launches in phase 5 (in phase 6
      for the fan-out; `launches_block_store` in phase 7, `launches_s3`
-     in phase 8), mismatches, times and bound (K2's with its graph
-     time, the replaced design's times, its stack frames and K3 against
-     K1 + K2)
+     in phase 8, `launches_daemons` in phase 9; the fan-out's two are
+     its dispatches, `tpu_mesh_engaged_total`), mismatches, times and
+     bound (K2's with its graph time, the replaced design's times, its
+     stack frames, K3 against K1 + K2, and K5's eager and graph times)
 
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero without it, as does a machine without CUDA.
@@ -106,6 +130,7 @@ import time
 from collections import Counter
 from pathlib import Path
 
+import aiohttp
 import numpy as np
 import torch
 
@@ -116,7 +141,9 @@ from garage_tpu_torch.block.codec_batch import CodecBatcher
 from garage_tpu_torch.block.repair import ScrubWorker
 from garage_tpu_torch.block.repair_plan import drive_bulk
 from garage_tpu_torch.graft_entry import dryrun_multichip
+from garage_tpu_torch.k2v_client import K2VClient
 from garage_tpu_torch.models.pipeline import ScrubRepairPipeline, scrub_stats
+from garage_tpu_torch.net.handshake import node_id_of
 from garage_tpu_torch.ops import _build, gf
 from garage_tpu_torch.ops.blake3_ref import blake3
 from garage_tpu_torch.ops.ec_cuda import (
@@ -130,6 +157,11 @@ from garage_tpu_torch.parallel.mesh import make_mesh
 from garage_tpu_torch.tools.block_cluster import (
     make_cluster, restart_node, stop_all, stop_node, wait_until,
 )
+from garage_tpu_torch.tools.daemons import (
+    ADMIN_TOKEN, CLI_WALLS, METRICS_TOKEN, WEB_ROOT, Daemon, cli, configure, free_ports,
+    kill_all, metric_samples,
+)
+from garage_tpu_torch.tools.daemons import stop_all as stop_daemons
 from garage_tpu_torch.tools.k2_compare import (
     BLAKE3_ADD_OPS, BLAKE3_ALU_ONLY_OPS, blake3_bound_ms, old_k2,
 )
@@ -331,10 +363,11 @@ def time_composites(dev, gen, sm_count: int, clock_hz: float) -> dict:
     """K3 (`encode_hash_tensor`: K1, then K2 over the data and parity
     pieces where they lie, on one stream) at a full batcher dispatch,
     B=64, and K5 (the pipeline's `fwd`: K3 plus the scrub statistics) at
-    phase 5's scrub batch, B=256; EC(8,3), 1 MiB blocks.  Each against
-    the same composition of the plain versions (K1's in 64-block chunks)
-    and against its bound: K1's byte bound plus K2's operation bound at
-    the same shape.  Then K3's split (`split_k3`)."""
+    phase 5's scrub batch, B=256; EC(8,3), 1 MiB blocks.  Each timed
+    eagerly and by CUDA-graph replay, against the same composition of the
+    plain versions (K1's in 64-block chunks) and against its bound: K1's
+    byte bound plus K2's operation bound at the same shape.  Then K3's
+    split (`split_k3`)."""
     s = BLOCK // K
     bm = coding_state_from_numpy(gf.cauchy_parity_matrix(K, M), dev)["bitmat"]
     fwd = ScrubRepairPipeline(K, M, s, device=dev).encode_and_hash_fn()
@@ -353,13 +386,16 @@ def time_composites(dev, gen, sm_count: int, clock_hz: float) -> dict:
         mism = sum(diff(g, w)[0] for g, w in zip(got, want))
         require(mism == 0, f"{name}: {mism} elements differ from the plain versions")
         ms = time_ms(lambda: kern(x), 20)
+        g_ms = graph_ms(lambda: kern(x), 20)
         plain_ms = time_ms(lambda: plain(x, stats), 1)
         k1_ms = (b * K * s + b * M * s + bm.numel()) / HBM_BYTES_PER_S * 1e3
         k2_ms, k2_by = blake3_bound_ms(b * (K + M), s, sm_count, clock_hz)
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": k1_ms + k2_ms}
-        print(f"{name} B={b} S={s}: mismatches={mism} ms={ms:.6f} plain_ms={plain_ms:.6f} "
-              f"bound_ms={k1_ms + k2_ms:.6f} (K1 bytes {k1_ms:.6f} + K2 {k2_by} {k2_ms:.6f}) "
-              f"bound_share={(k1_ms + k2_ms) / ms:.4f}")
+        rows[name] = {"ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+                      "bound_ms": k1_ms + k2_ms}
+        print(f"{name} B={b} S={s}: mismatches={mism} ms={ms:.6f} graph_ms={g_ms:.6f} "
+              f"plain_ms={plain_ms:.6f} bound_ms={k1_ms + k2_ms:.6f} (K1 bytes {k1_ms:.6f} "
+              f"+ K2 {k2_by} {k2_ms:.6f}) bound_share={(k1_ms + k2_ms) / ms:.4f} "
+              f"bound_share_graph={(k1_ms + k2_ms) / g_ms:.4f}")
     rows["K3_split"] = split_k3(dev, gen, bm, s)
     return rows
 
@@ -909,10 +945,8 @@ async def drive_block_store(dev, root) -> dict:
         worker = ScrubWorker(scrubbed)
         worker.state.tranquility = 0
         with Part("scrub", res):
-            while True:
-                state = await worker.work()
-                if state[0] == WorkerState.THROTTLED and state[1] >= 3600:
-                    break  # the pass is complete
+            while await worker.work() != WorkerState.IDLE:
+                pass  # the pass is complete when the worker starts its rest
         require(worker.state.corruptions == 3,
                 f"scrub: {worker.state.corruptions} corruptions found, want 3")
         require(all(os.path.exists(p + ".corrupted") and not os.path.exists(p)
@@ -1034,19 +1068,26 @@ def sampled_pieces(nodes, block: bytes) -> tuple[list[bytes], list[bytes]]:
         for rank, (path, compressed) in x.garage.block_manager.local_pieces(h).items():
             require(not compressed, f"piece {rank} of {h.hex()[:16]} is compressed")
             found[rank] = open(path, "rb").read()
+    return pieces_in_rank_order(h, found)
+
+
+def pieces_in_rank_order(h: bytes, found: dict) -> tuple[list[bytes], list[bytes]]:
+    """(pieces, header hashes) of block `h` from its piece files' bytes by
+    rank, which must hold every rank."""
     require(sorted(found) == list(range(K + M)),
             f"block {h.hex()[:16]}: piece files of ranks {sorted(found)} on disk")
     return [found[r][44:] for r in range(K + M)], [found[r][12:44] for r in range(K + M)]
 
 
-def check_pieces(dev, nodes, blocks: list[bytes]) -> int:
-    """The sampled blocks' pieces on disk against the plain versions on
-    the card: the data pieces are the block's bytes, the parity pieces
-    equal `gf_bitmatmul` of the data pieces, and every header hash equals
+def check_pieces(dev, pieces_of, blocks: list[bytes]) -> int:
+    """The sampled blocks' pieces on disk (`pieces_of(block)`: pieces and
+    header hashes in rank order) against the plain versions on the card:
+    the data pieces are the block's bytes, the parity pieces equal
+    `gf_bitmatmul` of the data pieces, and every header hash equals
     `blake3_batch_ref` of its piece.  Returns the pieces checked."""
     s = BLOCK // K
     bm = coding_state_from_numpy(gf.cauchy_parity_matrix(K, M), dev)["bitmat"]
-    pieces, heads = zip(*(sampled_pieces(nodes, b) for b in blocks))
+    pieces, heads = zip(*(pieces_of(b) for b in blocks))
     flat = torch.from_numpy(np.frombuffer(
         b"".join(p for ps in pieces for p in ps), dtype=np.uint8).copy()).to(dev)
     require(flat.numel() == len(blocks) * (K + M) * s, "sampled pieces: wrong lengths")
@@ -1063,6 +1104,16 @@ def check_pieces(dev, nodes, blocks: list[bytes]) -> int:
     return len(blocks) * (K + M)
 
 
+def s3_objects(rng) -> tuple[list[bytes], list[bytes]]:
+    """The 4 MiB and the 1 KiB objects of phases 8 and 9, drawn from
+    `rng` (both phases draw them from a generator seeded `SEED + 8`, so
+    they move the same bytes)."""
+    big = [rng.integers(0, 256, BIG_BLOCKS * BLOCK, dtype=np.uint8).tobytes()
+           for _ in range(N_BIG)]
+    small = [rng.integers(0, 256, SMALL, dtype=np.uint8).tobytes() for _ in range(N_SMALL)]
+    return big, small
+
+
 async def drive_s3(dev, root) -> dict:
     """Phase 8's main path: 11 nodes of this package, each a whole
     `Garage` with its EcCodec(8, 3) on the card, S3 on the first two,
@@ -1070,8 +1121,7 @@ async def drive_s3(dev, root) -> dict:
     set to 0 by the caller just before."""
     rng = np.random.default_rng(SEED + 8)
     big_len, part_len = BIG_BLOCKS * BLOCK, PART_BLOCKS * BLOCK
-    big = [rng.integers(0, 256, big_len, dtype=np.uint8).tobytes() for _ in range(N_BIG)]
-    small = [rng.integers(0, 256, SMALL, dtype=np.uint8).tobytes() for _ in range(N_SMALL)]
+    big, small = s3_objects(rng)
     parts = [rng.integers(0, 256, part_len, dtype=np.uint8).tobytes() for _ in range(MPU_PARTS)]
     keys = [rng.bytes(32) for _ in range(N_NODES)]  # node ids from the seed
     res: dict = {}
@@ -1236,7 +1286,7 @@ async def drive_s3(dev, root) -> dict:
         part[0] = "pieces"
         sample = [big[i][j * BLOCK:(j + 1) * BLOCK] for i, j in zip(
             range(0, N_BIG, N_BIG // N_SAMPLED), [n % BIG_BLOCKS for n in range(N_SAMPLED)])]
-        checked = check_pieces(dev, nodes, sample)
+        checked = check_pieces(dev, lambda b: sampled_pieces(nodes, b), sample)
         print(f"s3 pieces: {len(sample)} sampled blocks, {checked} piece files: data pieces "
               f"are the blocks' bytes, parity equals gf_bitmatmul, every header hash equals "
               f"blake3_batch_ref, on {dev}")
@@ -1316,6 +1366,542 @@ def run_s3(dev) -> dict:
     root = Path(tempfile.mkdtemp(prefix="s3-", dir=SCRATCH))
     try:
         return asyncio.run(asyncio.wait_for(drive_s3(dev, root), S3_TIMEOUT_S))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# --- phase 9: the daemons --------------------------------------------------------
+
+D_ENDPOINTS = (0, 1)  # S3 on daemons 0 and 1; K2V on daemon 0, the website on daemon 1
+N_K2V = 256
+K2V_PK = "smoke-room"
+SITE_PAGES = {"index.html": 2, "about.html": 2}  # whole blocks of each page, plus a tail
+DAEMON_UP_S = 180
+DAEMON_STOP_S = 60  # each daemon exits 0 within this after SIGTERM
+DAEMONS_TIMEOUT_S = 900  # a stuck part fails the phase instead of the call
+SCRUB_FLIPS = 3
+# The config's defaults but for two.  The durability scanner rescans
+# every 2 s instead of every 60 s, so that the repair part can wait for
+# `cluster durability` to report no missing pieces.  And, as in phase 8,
+# the request p99 target and the loop-lag limit of the shedding ladder
+# are raised: at the defaults (1 s, 0.5 s) the ladder of S3 daemon 0
+# climbed to "shed-write" on a latency burn of 16.8-34.3 with a loop-lag
+# p99 of 0 ms (4 MiB PUTs from 8 clients take about a second each), and
+# the restarted daemon's to "repair-slow" on a loop-lag p99 of 512 ms
+# (an H100 host).  The limits are raised, not the ladder switched off.
+DAEMON_EXTRA = {"durability": {"interval_secs": 2.0, "tranquility": 0}, **S3_EXTRA}
+REPAIR_S = 180
+LOG_DIR = os.environ.get("SMOKE_DAEMON_LOGS")  # where the daemons' logs go on a failure
+LAUNCH_FAMILY = "cuda_kernel_launches_total"
+WRAPPERS = {"k1": "gf_bitmatmul_cuda", "k2": "blake3_batch", "k3": "encode_hash_tensor"}
+
+
+class CountingK2V(K2VClient):
+    """The port's K2V client, tallying the status of every response."""
+
+    def __init__(self, endpoint: str, bucket: str, key_id: str, secret: str,
+                 statuses: Counter):
+        super().__init__(endpoint, bucket, key_id, secret)
+        self.statuses = statuses
+
+    async def _req(self, *a, **kw):
+        st, h, data = await super()._req(*a, **kw)
+        self.statuses[f"k2v {st}"] += 1
+        return st, h, data
+
+
+class Fleet:
+    """Phase 9's daemons and what their `/metrics` say.  Counts are summed
+    over every daemon process, those of a process that has ended (a
+    stopped daemon's) included: `retire` keeps its last scrape."""
+
+    def __init__(self, daemons: list[Daemon]):
+        self.daemons = daemons
+        self.last: dict[int, str] = {}  # daemon index -> its last exposition
+        self.retired: Counter = Counter()
+
+    async def scrape(self, sess) -> None:
+        for d in self.daemons:
+            if d.proc is None or d.proc.poll() is not None:
+                continue
+            async with sess.get(d.url(d.admin_port) + "/metrics",
+                                headers={"Authorization": f"Bearer {METRICS_TOKEN}"}) as r:
+                require(r.status == 200, f"daemon {d.index} /metrics: {r.status}")
+                self.last[d.index] = await r.text()
+
+    @staticmethod
+    def counts(text: str) -> Counter:
+        c = Counter()
+        for lbl, v in metric_samples(text, LAUNCH_FAMILY):
+            c[("launch", lbl["kernel"])] += v
+        for lbl, v in metric_samples(text, "tpu_codec_dispatch_total"):
+            c[("dispatch", lbl["kernel"], lbl["platform"])] += v
+        for _lbl, v in metric_samples(text, "block_corrupted_count"):
+            c[("corrupted",)] += v
+        for _lbl, v in metric_samples(text, "tpu_mesh_engaged_total"):
+            c[("mesh",)] += v
+        return c
+
+    def totals(self, index: int | None = None) -> Counter:
+        """Counts of daemon `index` (its current process), or of all."""
+        if index is not None:
+            return self.counts(self.last.get(index, ""))
+        out = Counter(self.retired)
+        for text in self.last.values():
+            out.update(self.counts(text))
+        return out
+
+    def retire(self, d: Daemon) -> None:
+        self.retired.update(self.counts(self.last.pop(d.index, "")))
+
+    @staticmethod
+    def launches(totals: Counter) -> dict:
+        return {k: int(totals[("launch", w)]) for k, w in WRAPPERS.items()}
+
+
+class DaemonPart:
+    """Wall time and the daemons' K1/K2/K3 launches (summed over every
+    daemon, read from their `/metrics` before and after) of one part of
+    phase 9, printed beside phase 8's wall for the same part."""
+
+    def __init__(self, name: str, results: dict, fleet: Fleet, sess, phase8: dict):
+        self.name, self.results, self.fleet, self.sess = name, results, fleet, sess
+        self.phase8 = phase8
+
+    async def __aenter__(self):
+        await self.fleet.scrape(self.sess)
+        self.before = Fleet.launches(self.fleet.totals())
+        self.t0 = time.perf_counter()
+        return self
+
+    async def __aexit__(self, exc_type, *_):
+        if exc_type is not None:
+            return False
+        wall = time.perf_counter() - self.t0
+        await self.fleet.scrape(self.sess)
+        after = Fleet.launches(self.fleet.totals())
+        row = {"wall_s": wall, **{f"{k}_launches": after[k] - self.before[k] for k in WRAPPERS}}
+        self.results[self.name] = row
+        p8 = (self.phase8.get(self.name) or {}).get("wall_s")
+        print(f"daemons {self.name}: wall_s={wall:.6f} (phase 8: "
+              f"{'-' if p8 is None else f'{p8:.6f}'}) K1={row['k1_launches']} "
+              f"K2={row['k2_launches']} K3={row['k3_launches']}")
+        return False
+
+
+def daemon_pieces(d: Daemon, h: bytes) -> dict[int, bytes]:
+    """The piece files of block `h` in daemon `d`'s data directory, by
+    rank (`<data>/<h[:2]>/<h[2:4]>/<hash>.p<rank>`)."""
+    hx = h.hex()
+    folder = d.dir / "data" / hx[:2] / hx[2:4]
+    return {int(p.name.rsplit(".p", 1)[1]): p.read_bytes()
+            for p in folder.glob(f"{hx}.p*") if p.name.rsplit(".p", 1)[1].isdigit()}
+
+
+def daemon_piece_files(d: Daemon) -> dict[str, bytes]:
+    """Every piece file in daemon `d`'s data directory: relative path ->
+    bytes."""
+    data = d.dir / "data"
+    return {str(p.relative_to(data)): p.read_bytes() for p in data.glob("*/*/*.p*")
+            if p.name.rsplit(".p", 1)[1].isdigit()}
+
+
+def repair_report(victim: Daemon, before: dict[str, bytes]) -> None:
+    """What a failed repair left: the piece files missing or different on
+    the restarted daemon, and its repair workers' status."""
+    now = daemon_piece_files(victim)
+    missing = [p for p in before if p not in now]
+    differ = [p for p in before if p in now and now[p] != before[p]]
+    print(f"repair report: {len(before)} piece files before, {len(now)} now, "
+          f"{len(missing)} missing {missing[:3]}, {len(differ)} different", file=sys.stderr)
+    for p in differ[:3]:
+        print(f"  {p}: header before {before[p][:44].hex()} after {now[p][:44].hex()}, "
+              f"payload equal {before[p][44:] == now[p][44:]}", file=sys.stderr)
+    workers = json.loads(cli(victim.config, "--json", "worker", "list"))
+    print(f"repair report: workers {json.dumps([w for w in workers if 'repair' in w['name']])}",
+          file=sys.stderr)
+
+
+def histogram_means(texts: list[str], family: str) -> dict:
+    """Per label set of a duration histogram, summed over expositions:
+    [count, mean seconds]."""
+    sums, counts = Counter(), Counter()
+    for text in texts:
+        for lbl, v in metric_samples(text, family + "_sum"):
+            sums[",".join(lbl.values())] += v
+        for lbl, v in metric_samples(text, family + "_count"):
+            counts[",".join(lbl.values())] += v
+    return {k: [int(counts[k]), round(sums[k] / counts[k], 6)] for k in sorted(counts)
+            if counts[k]}
+
+
+def histogram_p99(text: str, family: str) -> float | None:
+    """The upper bound of the bucket that holds the 99th percentile of a
+    histogram (its label sets merged), from one exposition."""
+    buckets = Counter()
+    for lbl, v in metric_samples(text, family + "_bucket"):
+        buckets[float(lbl["le"])] += v
+    total = buckets[float("inf")]
+    if not total:
+        return None
+    return next(le for le in sorted(buckets) if buckets[le] >= 0.99 * total)
+
+
+async def admin_json(sess, d: Daemon, path: str):
+    async with sess.get(d.url(d.admin_port) + path,
+                        headers={"Authorization": f"Bearer {ADMIN_TOKEN}"}) as r:
+        require(r.status == 200, f"daemon {d.index} {path}: {r.status}")
+        return await r.json()
+
+
+async def poll(what: str, cond, timeout: float, every: float = 0.5):
+    """Await `cond()` until it returns a true value, which is returned;
+    fails the phase after `timeout` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = await cond()
+        if got:
+            return got
+        require(time.monotonic() < deadline, f"{what}: not reached in {timeout} s")
+        await asyncio.sleep(every)
+
+
+async def drive_daemons(dev, root: Path, phase8: dict) -> dict:
+    """Phase 9's main path: 11 daemons of this package, each a process of
+    its own (`python -m garage_tpu_torch.cli server`) with its EcCodec on
+    the card, configured by CLI processes and driven over HTTP with phase
+    8's data and clients."""
+    cpu = dev.type != "cuda"
+    big, small = s3_objects(np.random.default_rng(SEED + 8))  # phase 8's, byte for byte
+    krng = np.random.default_rng(SEED + 9)
+    node_keys = [krng.bytes(32) for _ in range(N_NODES)]
+    k2v_items = [(f"item-{i:04d}", krng.bytes(int(krng.integers(1, 2048))))
+                 for i in range(N_K2V)]
+    pages = {name: krng.bytes(n * BLOCK + 4321) for name, n in SITE_PAGES.items()}
+    ports = free_ports(2 * N_NODES + 4)
+    ids = [node_id_of(k).hex() for k in node_keys]
+    addr = [f"{ids[i]}@127.0.0.1:{ports[2 * i]}" for i in range(N_NODES)]
+    daemons = [Daemon(
+        root, i, ports[2 * i], ports[2 * i + 1], mode=f"ec:{K}:{M}", block_size=BLOCK,
+        cpu=cpu, node_key=node_keys[i], extra=DAEMON_EXTRA,
+        peers=[a for j, a in enumerate(addr) if j != i],
+        s3_port=ports[2 * N_NODES + i] if i in D_ENDPOINTS else None,
+        k2v_port=ports[2 * N_NODES + 2] if i == 0 else None,
+        web_port=ports[2 * N_NODES + 3] if i == 1 else None) for i in range(N_NODES)]
+    fleet = Fleet(daemons)
+    res: dict = {}
+    statuses: Counter = Counter()
+    closing: list = []
+    CLI_WALLS.clear()
+    t0 = time.perf_counter()
+    try:
+        for d in daemons:
+            d.start()
+        for d in daemons:
+            await asyncio.to_thread(d.wait_up, DAEMON_UP_S)
+        res["boot_s"] = time.perf_counter() - t0
+        require([d.node_id for d in daemons] == ids, "a daemon's node id is not its seeded key's")
+        if not cpu:
+            free, total = torch.cuda.mem_get_info(dev)
+            res["card_memory_gib"] = {"used": (total - free) / 2**30, "total": total / 2**30,
+                                      "this_process": torch.cuda.memory_reserved(dev) / 2**30}
+        print(f"daemons: {N_NODES} processes up in {res['boot_s']:.6f} s (to the last up line); "
+              f"nproc={os.cpu_count()} affinity={len(os.sched_getaffinity(0))}; "
+              f"card memory (GiB) {json.dumps(res.get('card_memory_gib'))}")
+
+        async with aiohttp.ClientSession() as sess:
+            async def meshed(d):  # every peer up and the layout applied, as `d` sees it
+                st = await admin_json(sess, d, "/v1/status")
+                return st["layoutVersion"] >= 1 and sum(n["isUp"] for n in st["nodes"]) == N_NODES
+
+            t1 = time.perf_counter()
+            key_id, secret = await asyncio.to_thread(configure, daemons, S3_BUCKET, True)
+            for d in daemons:
+                await poll(f"daemon {d.index} in the mesh", lambda d=d: meshed(d), 120)
+            res["setup"] = {"wall_s": time.perf_counter() - t1}
+            walls = [w for _c, w in CLI_WALLS]
+            res["cli"] = {"calls": len(walls), "mean_s": sum(walls) / len(walls),
+                          "max_s": max(walls)}
+            print(f"daemons setup: wall_s={res['setup']['wall_s']:.6f}; CLI processes "
+                  f"{json.dumps(res['cli'])}: " + ", ".join(f"{c} {w:.3f}" for c, w in CLI_WALLS))
+
+            eps = [daemons[i].url(daemons[i].s3_port) for i in D_ENDPOINTS]
+            clients = [CountingClient(eps[c % 2], key_id, secret, statuses)
+                       for c in range(S3_CLIENTS)]
+            other = [CountingClient(eps[(c + 1) % 2], key_id, secret, statuses)
+                     for c in range(S3_CLIENTS)]
+            k2v = [CountingK2V(daemons[0].url(daemons[0].k2v_port), S3_BUCKET, key_id, secret,
+                               statuses) for _ in range(S3_CLIENTS)]
+            closing += clients + other + k2v
+            big_keys = [f"big/{i:03d}" for i in range(N_BIG)]
+            small_keys = [f"small/{i:04d}" for i in range(N_SMALL)]
+            etags: dict[str, str] = {}
+
+            def part(name):
+                return DaemonPart(name, res, fleet, sess, phase8)
+
+            async def put_share(c: int, items):
+                for k, body in items[c::S3_CLIENTS]:
+                    etags[k] = await clients[c].put_object(S3_BUCKET, k, body)
+
+            async with part("put"):
+                await asyncio.gather(*[put_share(c, list(zip(big_keys, big)))
+                                       for c in range(S3_CLIENTS)])
+            async with part("put_small"):
+                await asyncio.gather(*[put_share(c, list(zip(small_keys, small)))
+                                       for c in range(S3_CLIENTS)])
+            bad = [k for k, b in zip(big_keys + small_keys, big + small)
+                   if etags[k] != hashlib.md5(b).hexdigest()]
+            require(not bad, f"PUT: ETags of {bad[:4]} are not the MD5 of the body")
+            require(cpu or res["put"]["k3_launches"] > 0, "the daemons' PUTs never launched K3")
+            require(res["put_small"]["k3_launches"] == 0, "the inline PUTs reached the codec")
+
+            async def get_share(c: int, ks, via):
+                return [(k, await via[c].get_object(S3_BUCKET, k)) for k in ks[c::S3_CLIENTS]]
+
+            async with part("get"):
+                got = await asyncio.gather(*[get_share(c, big_keys, other)
+                                             for c in range(S3_CLIENTS)])
+                lo = BLOCK - 100
+                ranged = await other[1].get_object(S3_BUCKET, big_keys[0],
+                                                   range_=f"bytes={lo}-{BLOCK + 99}")
+            body_of = dict(zip(big_keys, big))
+            bad = [k for kb in got for k, b in kb if b != body_of[k]]
+            require(not bad, f"GET: {bad[:4]} differ from what was PUT")
+            require(ranged == big[0][lo:BLOCK + 100], "ranged GET across a block boundary differs")
+            async with part("get_small"):
+                got = await asyncio.gather(*[get_share(c, small_keys, other)
+                                             for c in range(S3_CLIENTS)])
+            body_of = dict(zip(small_keys, small))
+            require(all(b == body_of[k] for kb in got for k, b in kb), "GET: inline objects differ")
+
+            async with part("k2v"):
+                await asyncio.gather(*[k2v[c].insert_batch(
+                    [(K2V_PK, sk, v, None) for sk, v in k2v_items[c::S3_CLIENTS]])
+                    for c in range(S3_CLIENTS)])
+                batch = await k2v[0].read_batch([{"partitionKey": K2V_PK}])
+                sk0 = k2v_items[0][0]
+                _vals, tok = await k2v[1].read_item(K2V_PK, sk0)
+                poller = asyncio.create_task(k2v[2].poll_item(K2V_PK, sk0, tok, timeout=30))
+                await asyncio.sleep(0.2)
+                await k2v[3].insert_item(K2V_PK, sk0, b"polled", token=tok)
+                polled = await poller
+            items = batch[0]["items"]
+            require([(i["sk"], [base64.b64decode(v) for v in i["v"]]) for i in items]
+                    == [(sk, [v]) for sk, v in k2v_items],
+                    f"K2V ReadBatch: {len(items)} items, not the {N_K2V} inserted")
+            require(polled is not None and polled[0] == [b"polled"], f"K2V poll: {polled}")
+            print(f"daemons k2v: {N_K2V} items inserted by {S3_CLIENTS} clients, read back as "
+                  f"one batch; one poll answered by a write")
+
+            for name, body in pages.items():
+                await clients[0].put_object(S3_BUCKET, name, body, "text/html")
+            site = daemons[1].url(daemons[1].web_port)
+
+            async def web_get(path):
+                async with sess.get(site + path, headers={"Host": f"{S3_BUCKET}.{WEB_ROOT}"}) as r:
+                    statuses[f"web {r.status}"] += 1
+                    return r.status, await r.read()
+
+            async with part("website"):
+                page = await web_get("/")
+            require(page == (200, pages["index.html"]), f"website GET: status {page[0]}")
+
+            # one daemon stopped, chosen by rank: the lowest data rank that
+            # serves no endpoint (every block has the same rank order)
+            hashes = [blake2sum(b[j * BLOCK:(j + 1) * BLOCK]) for b in big
+                      for j in range(BIG_BLOCKS)]
+            holder = {r: d.index for d in daemons for r in daemon_pieces(d, hashes[0])}
+            require(sorted(holder) == list(range(K + M)), f"block 0's ranks on disk: {holder}")
+            for h in hashes[:64]:
+                require({r: d.index for d in daemons for r in daemon_pieces(d, h)} == holder,
+                        "the blocks do not share one rank order")
+            victim_rank = next(r for r in range(K) if holder[r] not in D_ENDPOINTS)
+            victim = daemons[holder[victim_rank]]
+            await fleet.scrape(sess)
+            fleet.retire(victim)
+            code = await asyncio.to_thread(victim.stop, DAEMON_STOP_S)
+            require(code == 0, f"daemon {victim.index} exited {code} on SIGTERM")
+            print(f"daemons: daemon {victim.index} (rank {victim_rank}) stopped by SIGTERM, "
+                  f"exit code {code}")
+            async with part("degraded_get"):
+                got = await asyncio.gather(*[get_share(c, big_keys, clients)
+                                             for c in range(S3_CLIENTS)])
+            body_of = dict(zip(big_keys, big))
+            bad = [k for kb in got for k, b in kb if b != body_of[k]]
+            require(not bad, f"degraded GET: {bad[:4]} differ from what was PUT")
+            require(cpu or res["degraded_get"]["k1_launches"] > 0,
+                    "the daemons' degraded GETs never launched K1")
+            async with part("website_degraded"):
+                page = await web_get("/")
+                about = await web_get("/about.html")  # never read before: no cached block
+            require(page == (200, pages["index.html"]) and about == (200, pages["about.html"]),
+                    f"degraded website GETs: statuses {page[0]}, {about[0]}")
+            require(cpu or res["website_degraded"]["k1_launches"] > 0,
+                    "the degraded website GET never launched K1")
+
+            # repair: the stopped daemon comes back with its data dir wiped.
+            # Its pieces of the blocks written here are checked; it may also
+            # hold pieces of deleted blocks (the canary's probe objects)
+            # waiting for the block GC, which no repair rebuilds
+            ours = {h.hex() for h in hashes} | {
+                blake2sum(b[i:i + BLOCK]).hex() for b in pages.values()
+                for i in range(0, len(b), BLOCK)}
+            before = {p: b for p, b in daemon_piece_files(victim).items()
+                      if Path(p).name.split(".")[0] in ours}
+            shutil.rmtree(victim.dir / "data")
+            victim.start()
+            await asyncio.to_thread(victim.wait_up, DAEMON_UP_S)
+            await asyncio.to_thread(cli, daemons[0].config, "node", "connect", addr[victim.index])
+            for d in daemons:
+                await poll(f"daemon {d.index} sees the restarted daemon",
+                           lambda d=d: meshed(d), 120)
+
+            async def rebuilt():
+                now = await asyncio.to_thread(daemon_piece_files, victim)
+                return all(now.get(p) == b for p, b in before.items())
+
+            async with part("repair"):
+                await asyncio.to_thread(cli, victim.config, "repair", "blocks")
+                try:
+                    await poll("repair: the wiped daemon's pieces", rebuilt, REPAIR_S)
+                except SmokeFailure:
+                    await asyncio.to_thread(repair_report, victim, before)
+                    raise
+            require(len(before) == N_BIG * BIG_BLOCKS + sum(
+                -(-len(b) // BLOCK) for b in pages.values()),
+                f"repair: the stopped daemon held {len(before)} pieces of this phase's blocks")
+            require(cpu or res["repair"]["k1_launches"] > 0, "the repair never launched K1")
+            print(f"daemons repair: daemon {victim.index} restarted with its data dir wiped; "
+                  f"{len(before)} piece files rebuilt byte-identical through `repair blocks`")
+
+            async def no_missing():
+                r = await admin_json(sess, daemons[0], "/v1/cluster/durability")
+                agg = r["cluster"]["aggregate"]
+                done = (r["cluster"]["nodesReporting"] == N_NODES and agg["blocksTotal"]
+                        and agg["missingPieces"] == 0 and agg["healthyFraction"] == 1.0)
+                return agg if done else None
+
+            t1 = time.perf_counter()
+            agg = await poll("cluster durability: no missing pieces", no_missing, 180, 1.0)
+            res["durability_converged"] = {"wall_s": time.perf_counter() - t1}
+            out = await asyncio.to_thread(cli, daemons[0].config, "cluster", "durability")
+            require("100.0% healthy" in out and " 0 pieces" in out, f"cluster durability: {out}")
+            conv = res["durability_converged"]["wall_s"]
+            print(f"daemons durability: no missing pieces {conv:.6f} s after the repair "
+                  f"(digests gossip every 10 s): {json.dumps(agg)}; "
+                  f"`cluster durability`: " + " | ".join(out.splitlines()[:5]))
+
+            sample = [big[i][j * BLOCK:(j + 1) * BLOCK] for i, j in zip(
+                range(0, N_BIG, N_BIG // N_SAMPLED), [n % BIG_BLOCKS for n in range(N_SAMPLED)])]
+
+            def pieces_of(block):
+                h = blake2sum(block)
+                return pieces_in_rank_order(
+                    h, {r: b for d in daemons for r, b in daemon_pieces(d, h).items()})
+
+            checked = check_pieces(dev, pieces_of, sample)
+            print(f"daemons pieces: {len(sample)} sampled blocks, {checked} piece files from the "
+                  f"daemons' data dirs against the plain versions on {dev}")
+
+            # scrub: one flipped byte in each of 3 piece files of one daemon
+            scrubbed = next(d for d in reversed(daemons) if d is not victim)
+            rank = next(r for r, i in holder.items() if i == scrubbed.index)
+            flipped = [scrubbed.dir / "data" / h.hex()[:2] / h.hex()[2:4] / f"{h.hex()}.p{rank}"
+                       for h in hashes[:SCRUB_FLIPS]]
+            for p in flipped:
+                raw = bytearray(p.read_bytes())
+                raw[44 + 777] ^= 0xFF
+                p.write_bytes(bytes(raw))
+
+            async def corruptions():
+                await fleet.scrape(sess)
+                return fleet.totals(scrubbed.index)[("corrupted",)] >= SCRUB_FLIPS
+
+            k2_of = lambda: fleet.totals(scrubbed.index)[("launch", WRAPPERS["k2"])]  # noqa: E731
+            async with part("scrub"):
+                k2_before = k2_of()
+                await asyncio.to_thread(cli, scrubbed.config, "repair", "scrub",
+                                        "set-tranquility", "0")
+                await asyncio.to_thread(cli, scrubbed.config, "repair", "scrub", "start")
+                await poll("scrub: the flipped bytes", corruptions, 180)
+            workers = json.loads(await asyncio.to_thread(cli, scrubbed.config, "--json",
+                                                         "worker", "list"))
+            found = [w["info"]["corruptions"] for w in workers if w["name"] == "scrub"]
+            require(found == [SCRUB_FLIPS]
+                    and fleet.totals(scrubbed.index)[("corrupted",)] == SCRUB_FLIPS,
+                    f"scrub: corruptions {found}, want [{SCRUB_FLIPS}]")
+            res["scrub"]["k2_launches_scrubbed"] = int(k2_of() - k2_before)
+            require(cpu or res["scrub"]["k2_launches_scrubbed"] > 0,
+                    "the scrubbed daemon never launched K2")
+            print(f"daemons scrub: daemon {scrubbed.index}, {SCRUB_FLIPS} flipped bytes, "
+                  f"{found[0]} corruptions found, {res['scrub']['k2_launches_scrubbed']} K2 "
+                  f"launches in that daemon")
+
+            await fleet.scrape(sess)
+            totals = fleet.totals()
+            platforms = {k[2] for k, v in totals.items() if k[0] == "dispatch" and v}
+            want = "cpu" if cpu else "cuda"
+            require(platforms == {want},
+                    f"the daemons' codec dispatches ran on {sorted(platforms)}, not {want} only")
+            res["launches"] = Fleet.launches(totals)
+            res["mesh_engaged"] = int(totals[("mesh",)])  # K6's dispatches
+            res["dispatches"] = {f"{k[1]}/{k[2]}": int(v) for k, v in sorted(totals.items())
+                                 if k[0] == "dispatch" and v}
+            texts = list(fleet.last.values())
+            res["layers"] = {f: histogram_means(texts, f) for f in
+                             ("api_s3_request_duration", "table_put_request_duration")}
+            res["loop_lag_p99_s"] = {i: histogram_p99(t, "event_loop_lag_seconds")
+                                     for i, t in sorted(fleet.last.items())}
+            res["ladder_level"] = {
+                i: max((v for _l, v in metric_samples(t, "overload_ladder_level")), default=None)
+                for i, t in sorted(fleet.last.items())}
+            mib = 1 << 20
+            put_bytes = N_BIG * BIG_BLOCKS * BLOCK
+            res["rates_mib_s"] = {
+                "put": put_bytes / mib / res["put"]["wall_s"],
+                "put_small_objects_per_s": N_SMALL / res["put_small"]["wall_s"],
+                "get": put_bytes / mib / res["get"]["wall_s"],
+                "degraded_get": put_bytes / mib / res["degraded_get"]["wall_s"],
+            }
+            p8 = phase8.get("rates_mib_s", {})
+            print("daemons rates (phase 8 beside): " + ", ".join(
+                f"{k} {v:.6f} ({p8.get(k, float('nan')):.6f})"
+                for k, v in res["rates_mib_s"].items()))
+            print(f"daemons launches (summed over every daemon process): "
+                  f"{json.dumps(res['launches'])}; dispatches {json.dumps(res['dispatches'])}")
+            print(f"daemons layer latencies ([count, mean_s], summed over the daemons): "
+                  f"{json.dumps(res['layers'])}")
+            print(f"daemons loop lag p99 (s, a bucket bound): {json.dumps(res['loop_lag_p99_s'])};"
+                  f" shedding ladder level: {json.dumps(res['ladder_level'])}")
+        codes = {str(k): n for k, n in sorted(statuses.items(), key=str)}
+        print(f"daemons statuses: {json.dumps(codes)}")
+        require(all(200 <= int(str(k).split()[-1]) < 300 for k in statuses),
+                f"response statuses {codes}: want 2xx only")
+        res["statuses"] = codes
+        t1 = time.perf_counter()
+        codes = await asyncio.to_thread(stop_daemons, daemons, DAEMON_STOP_S)
+        res["stop_s"] = time.perf_counter() - t1
+        print(f"daemons stop: exit codes {codes} after SIGTERM, {res['stop_s']:.6f} s")
+        require(codes == [0] * N_NODES, f"daemons' exit codes after SIGTERM: {codes}")
+    except BaseException:
+        for d in daemons:  # what each daemon said last, for the failure's reader
+            print(f"--- daemon {d.index} log tail:\n{d.tail(15)}", file=sys.stderr)
+            if LOG_DIR and d.log.exists():
+                Path(LOG_DIR).mkdir(parents=True, exist_ok=True)
+                shutil.copy(d.log, Path(LOG_DIR) / f"daemon{d.index}.log")
+        raise
+    finally:
+        for c in closing:
+            await c.close()
+        kill_all(daemons)
+    return res
+
+
+def run_daemons(dev, phase8: dict) -> dict:
+    root = Path(tempfile.mkdtemp(prefix="daemons-", dir=SCRATCH))
+    try:
+        return asyncio.run(asyncio.wait_for(drive_daemons(dev, root, phase8), DAEMONS_TIMEOUT_S))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1403,9 +1989,10 @@ def main() -> int:
     gf_bitmatmul_cuda.launches = 0
     blake3_batch.launches = 0
     encode_hash_tensor.launches = 0
+    mesh0 = registry.counter_family_sum("tpu_mesh_engaged_total")  # K6's dispatches
     s3 = run_s3(dev)
     s3_launches = {"gf": gf_bitmatmul_cuda.launches, "blake3": blake3_batch.launches,
-                   "k3": encode_hash_tensor.launches}
+                   "k3": encode_hash_tensor.launches, "k6": int(registry.counter_family_sum("tpu_mesh_engaged_total") - mesh0)}
     require(s3_launches["k3"] > 0, "the S3 cluster never launched K3")
     require(s3_launches["gf"] > 0, "the S3 cluster never launched K1")
     require(s3_launches["blake3"] > 0, "the S3 cluster never launched K2")
@@ -1414,6 +2001,15 @@ def main() -> int:
           f"K2 {s3_launches['blake3']} K3 {s3_launches['k3']}; wall_s "
           f"{json.dumps({k: round(v['wall_s'], 6) for k, v in parts.items()})}; kernel_s "
           f"{json.dumps({k: round(v['kernel_s'], 6) for k, v in parts.items()})} on {card}")
+
+    daemons = run_daemons(dev, s3)
+    d_launches = daemons["launches"]
+    for k, what in (("k3", "K3"), ("k1", "K1"), ("k2", "K2")):
+        require(d_launches[k] > 0, f"the daemons never launched {what}")
+    walls = {k: round(v["wall_s"], 6) for k, v in daemons.items()
+             if isinstance(v, dict) and "wall_s" in v}
+    print(f"daemons: {N_NODES} processes EC({K},{M}), launches K1 {d_launches['k1']} "
+          f"K2 {d_launches['k2']} K3 {d_launches['k3']}; wall_s {json.dumps(walls)} on {card}")
 
     main_k1 = k1["ec83_encode"]
     main_k2 = k2[(64 * (K + M), 131072)]
@@ -1424,7 +2020,7 @@ def main() -> int:
             "replaces": "garage_tpu/ops/ec_tpu.py:116",
             "launches": launches["gf"],
             "launches_block_store": store_launches["gf"],
-            "launches_s3": s3_launches["gf"],
+            "launches_s3": s3_launches["gf"], "launches_daemons": d_launches["k1"],
             "mismatches": sum(r["mismatches"] for r in k1.values()),
             "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
             "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
@@ -1438,6 +2034,7 @@ def main() -> int:
             "launches": launches["blake3"],
             "launches_block_store": store_launches["blake3"],
             "launches_s3": s3_launches["blake3"], "k3_launches_s3": s3_launches["k3"],
+            "launches_daemons": d_launches["k2"], "k3_launches_daemons": d_launches["k3"],
             "mismatches": sum(r["mismatches"] for r in k2.values())
             + slice_res["hash_mismatches"],
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
@@ -1449,12 +2046,15 @@ def main() -> int:
             "library_ms": None, "stack_frame_bytes": stack_frames,
             "k3_ms": composites["K3"]["ms"], "k3_over_k1_plus_k2":
                 composites["K3"]["ms"] / composites["K3_split"]["k1_plus_k2"]["ms"],
+            "k5_ms": composites["K5"]["ms"], "k5_graph_ms": composites["K5"]["graph_ms"],
+            "k5_bound_ms": composites["K5"]["bound_ms"],
         },
         {
             "name": "mesh_fanout", "route": "cuda (K1 per entry)",
             "source": "garage_tpu_torch/ops/ec_cuda.py",
             "replaces": "garage_tpu/ops/ec_tpu.py:228",
-            "launches": mesh_run["launches"]["gf"], "launches_s3": 0,
+            "launches": mesh_run["launches"]["gf"], "launches_s3": s3_launches["k6"],
+            "launches_daemons": daemons["mesh_engaged"],
             "mismatches": mesh_run["mismatches"] + fanout["mismatches"],
             "max_abs_err": fanout["max_abs_err"],
             "ms": fanout["ms"], "plain_ms": fanout["plain_ms"],

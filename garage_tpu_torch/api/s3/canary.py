@@ -155,7 +155,7 @@ class CanaryWorker(Worker):
             if got != body:
                 raise Error("canary readback does not match what was PUT")
 
-        ok_all = True
+        ok_all, denied = True, False
         for op, fn in (
             ("put", lambda: c.put_object(self.bucket, obj, body)),
             ("get", get_and_verify),
@@ -170,6 +170,7 @@ class CanaryWorker(Worker):
                 # and STOP probing exactly when signal matters most)
                 outcome = "error"
                 ok_all = False
+                denied = denied or getattr(e, "status", None) == 403
                 self.last_error = f"{op}: {e!r}"
                 logger.warning("canary %s probe failed: %r", op, e)
             registry.observe(
@@ -181,6 +182,12 @@ class CanaryWorker(Worker):
         if not ok_all:
             self.failed += 1
         self.healthy = 1.0 if ok_all else 0.0
+        if denied:
+            # the key's grant names another bucket than the alias does now
+            # (two S3 nodes created the hidden bucket at once, and the
+            # alias kept the other): set up again on the next cycle, which
+            # grants on the bucket the alias names
+            await self.stop_client()
         return (WorkerState.THROTTLED, self.interval)
 
     async def stop_client(self) -> None:

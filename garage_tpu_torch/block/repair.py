@@ -17,6 +17,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
+import time
 
 import numpy as np
 import torch
@@ -32,6 +33,7 @@ from ..utils.tranquilizer import Tranquilizer
 logger = logging.getLogger("garage.block.repair")
 
 SCRUB_BATCH = 16
+SCRUB_REST_SECS = 3600.0  # between two passes
 
 
 def _device_hashes(device: torch.device, batch: np.ndarray) -> np.ndarray:
@@ -124,6 +126,10 @@ class ScrubWorker(Worker):
         )
         self.state = (self.persister.load() if self.persister else None) or ScrubPersisted()
         self.paused = False
+        # the rest after a pass ends at this monotonic time; the operator's
+        # start command ends it at once through `_wake`
+        self._rest_until: float | None = None
+        self._wake = asyncio.Event()
 
     def name(self) -> str:
         return "scrub"
@@ -145,12 +151,26 @@ class ScrubWorker(Worker):
         self.state.cursor = b""
         self.paused = False
         self._save()
+        self._end_rest()
 
     def cmd_pause(self) -> None:
         self.paused = True
 
     def cmd_resume(self) -> None:
         self.paused = False
+
+    def _end_rest(self) -> None:
+        self._rest_until = None
+        self._wake.set()
+
+    async def wait_for_work(self) -> None:
+        """Rest until the pass's rest is over or a command ends it."""
+        left = None if self._rest_until is None else self._rest_until - time.monotonic()
+        try:
+            await asyncio.wait_for(self._wake.wait(), left)
+        except asyncio.TimeoutError:
+            pass
+        self._wake.clear()
 
     def cmd_cancel(self) -> None:
         """Abort the in-progress pass (the next one starts from zero)."""
@@ -165,6 +185,10 @@ class ScrubWorker(Worker):
     async def work(self):
         if self.paused:
             return (WorkerState.THROTTLED, 5.0)
+        if self._rest_until is not None:
+            if time.monotonic() < self._rest_until:
+                return WorkerState.IDLE
+            self._rest_until = None
         self.tranquilizer.reset()
         n = 0
         for key, _v in self.manager.rc.tree.iter_range(start=self.state.cursor):
@@ -175,10 +199,12 @@ class ScrubWorker(Worker):
             if n >= SCRUB_BATCH:
                 break
         if n == 0:
-            # cycle complete: restart from the beginning after a long rest
+            # cycle complete: restart from the beginning after a long rest,
+            # which `repair scrub start` cuts short
             self.state.cursor = b""
             await self._save_async()
-            return (WorkerState.THROTTLED, 3600.0)
+            self._rest_until = time.monotonic() + SCRUB_REST_SECS
+            return WorkerState.IDLE
         await self._save_async()
         delay = self.tranquilizer.tranquilize_delay(self.state.tranquility)
         return (WorkerState.THROTTLED, max(delay, 0.05))

@@ -30,6 +30,15 @@ from ..ops.ec_cuda import (
 from ..parallel.mesh import Mesh
 
 
+def _int64_on(dev, value) -> torch.Tensor:
+    """`value` as an int64 scalar on `dev`: a fill on the device for a
+    Python number, with no host-to-device copy, so the scrub statistics
+    can be captured in a CUDA graph."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=dev, dtype=torch.int64)
+    return torch.full((), value, dtype=torch.int64, device=dev)
+
+
 def scrub_bit_sums(hashes: torch.Tensor, nvalid=None) -> torch.Tensor:
     """hashes (B, n, 32) uint8 -> (32,) int64: for each bit position, how
     many little-endian 32-bit hash words of the first `nvalid` blocks
@@ -42,8 +51,7 @@ def scrub_bit_sums(hashes: torch.Tensor, nvalid=None) -> torch.Tensor:
     bitpos = torch.arange(32, dtype=torch.int64, device=dev)
     bits = (words[..., None] >> bitpos) & 1  # (B, W, 32)
     if nvalid is not None:
-        count = torch.as_tensor(nvalid, dtype=torch.int64).to(dev)
-        valid = (torch.arange(b, device=dev) < count).to(torch.int64)
+        valid = (torch.arange(b, device=dev) < _int64_on(dev, nvalid)).to(torch.int64)
         bits = bits * valid[:, None, None]
     return bits.sum(dim=(0, 1))
 
@@ -55,7 +63,7 @@ def finish_scrub(bit_sums: torch.Tensor, count) -> torch.Tensor:
     dev = bit_sums.device
     bitpos = torch.arange(32, dtype=torch.int64, device=dev)
     fold = ((bit_sums & 1) << bitpos).sum()
-    return torch.stack([torch.as_tensor(count, dtype=torch.int64).to(dev), fold])
+    return torch.stack([_int64_on(dev, count), fold])
 
 
 def scrub_stats(hashes: torch.Tensor, nvalid=None) -> torch.Tensor:

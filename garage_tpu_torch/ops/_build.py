@@ -32,6 +32,7 @@ import threading
 import time
 from pathlib import Path
 
+from ..utils.metrics import registry
 from . import telemetry
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -169,8 +170,12 @@ def check(code: int, what: str) -> None:
 
 
 def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`.  The batcher's encode and decode
-    lanes launch from two worker threads at once, so the increment is
-    taken under a lock to keep the count exact."""
+    """Add one to `wrapper.launches`, and to the process's
+    `cuda_kernel_launches_total{kernel=<wrapper>}` counter, which a
+    node's `/metrics` exposes (the launches of a node in another process
+    are read there).  The batcher's encode and decode lanes launch from
+    two worker threads at once, so the increments are taken under a lock
+    to keep the counts exact."""
     with _count_lock:
         wrapper.launches += 1
+        registry.incr("cuda_kernel_launches_total", (("kernel", wrapper.__name__),))

@@ -86,7 +86,9 @@ def ring_records(flight, tracing, children: list[int]):
                 for _ in range(n):
                     with t.span("child"):
                         pass
-                s.start_ns -= 50_000_000  # fake 50 ms
+                # fake 50 ms, 10 ms more for each root: the top 3 are the
+                # last three whatever the host's clock adds
+                s.start_ns -= (50 + 10 * i) * 1_000_000
         assert not rec.pending  # roots finalize their trees
         assert t._buf == []  # hooks alone must not fill the export buffer
         return rec.snapshot()

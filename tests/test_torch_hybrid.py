@@ -25,10 +25,15 @@ from garage_tpu_torch.utils.metrics import registry
 
 from test_block import make_block_cluster, stop_all
 from test_ec_cluster import make_ec_cluster, stop_cluster
+from torch_mirror import time_limit
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)
 torch.set_num_threads(1)
+
+# a test still running after 3 minutes ends its worker process, so that no
+# scenario can hold the suite past its clock
+_limit = time_limit(180)
 
 N = 8
 

@@ -5,8 +5,10 @@ module (module names matched exactly: `garage_tpu_torch` is not
 apart from the lazy imports of modules not ported yet (`DEFERRED`); the
 card path holds no try/except that could fall back to a plain version,
 and neither does the scrub's call of kernel K2, nor a node's choice of
-its codec's device; and the entry points, a node's `Garage` among them,
-raise when CUDA is absent unless the caller asks for the CPU."""
+its codec's device; the entry points, a node's `Garage` and the daemon
+(`python -m garage_tpu_torch.cli server`) among them, raise when CUDA is
+absent unless the caller asks for the CPU; and the CLI's client path
+touches no CUDA."""
 
 import ast
 from pathlib import Path
@@ -224,3 +226,58 @@ def test_garage_with_the_default_config_raises_without_cuda(tmp_path):
         assert g.block_manager.codec.device.type == "cpu"
     finally:
         g.db.close()
+
+
+CLIENT_PATH = ["garage_tpu_torch/cli/main.py", "garage_tpu_torch/cli/__main__.py",
+               "garage_tpu_torch/k2v_client/client.py", "garage_tpu_torch/k2v_client/__main__.py",
+               "garage_tpu_torch/format_table.py"]
+
+
+@pytest.mark.parametrize("rel", CLIENT_PATH)
+def test_client_path_holds_no_cuda_call(rel):
+    """A CLI call is a peer of the daemon, never a device user: the CLI's
+    module and the K2V client name neither `torch` nor any `.cuda`."""
+    tree = ast.parse((ROOT / rel).read_text())
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    attrs = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    assert "torch" not in names and "cuda" not in attrs, rel
+
+
+def test_cli_client_call_touches_no_cuda(tmp_path, monkeypatch, capsys):
+    """`node id`, a client call, runs with every CUDA entry raising."""
+    from garage_tpu_torch.cli.main import main
+    from garage_tpu_torch.net.handshake import gen_node_key, node_id_of
+
+    (tmp_path / "meta").mkdir()
+    key = gen_node_key()
+    (tmp_path / "meta" / "node_key").write_bytes(key)
+    cfg = tmp_path / "garage.toml"
+    cfg.write_text(f'metadata_dir = "{tmp_path / "meta"}"\ndata_dir = "{tmp_path / "data"}"\n'
+                   f'rpc_bind_addr = "127.0.0.1:3901"\nrpc_secret = "{"ab" * 32}"\n')
+
+    def no_cuda(*a, **kw):
+        raise AssertionError("the CLI's client path touched CUDA")
+
+    for name in ("is_available", "device_count", "current_device", "_lazy_init", "init"):
+        monkeypatch.setattr(torch.cuda, name, no_cuda)
+    main(["-c", str(cfg), "node", "id"])
+    assert capsys.readouterr().out.strip() == f"{node_id_of(key).hex()}@127.0.0.1:3901"
+
+
+def test_cli_server_with_the_default_config_exits_naming_cuda(tmp_path):
+    """`cli server` on a config with the default `[tpu]` exits non-zero
+    when CUDA is absent, naming it, before it opens anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    import subprocess
+    import sys
+
+    cfg = tmp_path / "garage.toml"
+    cfg.write_text(f'metadata_dir = "{tmp_path / "meta"}"\ndata_dir = "{tmp_path / "data"}"\n'
+                   f'replication_mode = "ec:2:1"\nrpc_bind_addr = "127.0.0.1:3901"\n'
+                   f'rpc_secret = "{"ab" * 32}"\n')
+    r = subprocess.run([sys.executable, "-m", "garage_tpu_torch.cli", "-c", str(cfg), "server"],
+                       capture_output=True, text=True, timeout=60, cwd=ROOT)
+    assert r.returncode != 0
+    assert "CUDA" in r.stderr and "up" not in r.stdout
+    assert not (tmp_path / "meta").exists()

@@ -9,10 +9,15 @@ modules through `port_mirror` (tests/test_torch_s3.py)."""
 import torch
 
 from test_torch_s3 import mirrored_tests, port_mirror
+from torch_mirror import time_limit
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)
 torch.set_num_threads(1)
+
+# a test still running after 3 minutes ends its worker process, so that no
+# scenario can hold the suite past its clock
+_limit = time_limit(180)
 
 globals().update(mirrored_tests(port_mirror("test_meta_replication.py"), "meta"))
 globals().update(mirrored_tests(port_mirror("test_discovery.py"), "discovery"))

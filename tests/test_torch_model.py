@@ -47,10 +47,15 @@ import garage_tpu_torch.utils.crdt as t_crdt
 import garage_tpu_torch.utils.serde as t_serde
 import test_s3_api as ref_s3
 from test_torch_s3 import mirrored_tests, port_mirror, s3_mirror
+from torch_mirror import time_limit
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)
 torch.set_num_threads(1)
+
+# a test still running after 3 minutes ends its worker process, so that no
+# scenario can hold the suite past its clock
+_limit = time_limit(180)
 
 model_mirror = port_mirror("test_model.py")
 globals().update(mirrored_tests(model_mirror, "model"))

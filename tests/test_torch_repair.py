@@ -15,6 +15,9 @@ the block hash can catch it.
   - `reconstruct_local_piece` (the resync path) rejects the same block:
     the resync step fails, records the error and writes nothing.
 
+The scrub worker ends its rest between passes when the operator starts
+a pass (`repair scrub start`), which the reference's worker does not.
+
 Every cluster test body runs under `asyncio.wait_for(..., 60)`.
 """
 
@@ -22,6 +25,7 @@ import asyncio
 import os
 import random
 import threading
+import types
 
 import pytest
 import torch
@@ -155,3 +159,49 @@ def test_reconstruct_local_piece_rejects_corrupt_survivor(tmp_path):
             await bc.stop_all(nodes)
 
     run(main())
+
+
+async def scrub_passes_after_start(repair_mod, background_mod) -> int:
+    """A scrub worker under a `BackgroundRunner` over 3 blocks: after its
+    first pass it rests; `cmd_start` is issued, and the blocks scrubbed
+    within the next second are counted."""
+    keys = [bytes([i]) * 32 for i in range(3)]
+    seen = []
+
+    class Tree:
+        def iter_range(self, start=b""):
+            return iter([(k, b"") for k in keys if k >= start])
+
+    mgr = types.SimpleNamespace(rc=types.SimpleNamespace(tree=Tree()))
+    w = repair_mod.ScrubWorker(mgr)
+    w.state.tranquility = 0
+
+    async def scrub_one(h):
+        seen.append(h)
+
+    w._scrub_one = scrub_one
+    bg = background_mod.BackgroundRunner()
+    bg.spawn(w)
+    try:
+        await bc.wait_until(lambda: seen == keys, 10, "the first pass")
+        await asyncio.sleep(0.3)  # the pass is over: the worker rests
+        first = len(seen)
+        w.cmd_start()
+        await asyncio.sleep(1.0)
+        return len(seen) - first
+    finally:
+        await bg.shutdown()
+
+
+def test_scrub_start_ends_the_rest_between_passes():
+    """`repair scrub start` begins a pass at once, also while the scrub
+    rests between passes (an hour).  The reference's worker sleeps
+    through it: its commands do not wake the worker, so a pass started by
+    the operator waits for the rest to end (F4 in ROADMAP queue 3)."""
+    from garage_tpu.block import repair as j_repair
+    from garage_tpu.utils import background as j_background
+    from garage_tpu_torch.block import repair as t_repair
+    from garage_tpu_torch.utils import background as t_background
+
+    assert run(scrub_passes_after_start(t_repair, t_background)) == 3
+    assert run(scrub_passes_after_start(j_repair, j_background)) == 0

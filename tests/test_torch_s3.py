@@ -5,9 +5,8 @@ to the reference on the CPU.
     port node through the port's client: buckets, inline and multi-block
     objects, ranged GETs, multipart, list v1 and v2, copy, delete, POST
     object, bucket config, SSE-C, checksums, streaming signatures and
-    the lifecycle worker; the two scenarios that need modules the port
-    does not have yet (the admin API and the website server) are left
-    out by name.  The scenarios are the reference file's own text with
+    the lifecycle worker, the admin API and the website server.  The
+    scenarios are the reference file's own text with
     every `garage_tpu` import pointed at the port, and each node's
     config asks for the CPU (`[tpu] enable = false`);
   - the SigV4 vectors of tests/test_sigv4_vectors.py against the port's
@@ -24,8 +23,6 @@ Tolerance: zero for bytes, digests and ETags.
 import asyncio
 import random
 import re
-import sys
-import types
 from pathlib import Path
 
 import torch
@@ -33,64 +30,18 @@ import torch
 import test_s3_api as ref_s3
 from garage_tpu.api.s3.client import S3Client as JS3Client
 from garage_tpu_torch.api.s3.client import S3Client
+from torch_mirror import mirrored_tests, port_mirror, time_limit
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)
 torch.set_num_threads(1)
 
+# a test still running after 3 minutes ends its worker process, so that no
+# scenario can hold the suite past its clock
+_limit = time_limit(180)
+
 TESTS = Path(__file__).resolve().parent
-CPU = {"enable": False}  # the port's nodes run the kernels' plain versions
-
-
-def on_cpu(make_config):
-    """`config_from_dict` that asks for the CPU unless `[tpu]` is given."""
-
-    def wrapped(d, *a, **kw):
-        return make_config({"tpu": CPU, **d}, *a, **kw)
-
-    return wrapped
-
-
-_loading: set[str] = set()
-
-
-def port_mirror(ref_file: str, leave_out: tuple[str, ...] = ()) -> types.ModuleType:
-    """The reference test file `ref_file` with every `garage_tpu` module
-    name pointed at `garage_tpu_torch`, loaded as a module of its own;
-    its nodes' configs ask for the CPU.  The reference test modules it
-    imports its helpers from are mirrored the same way.  `leave_out`
-    names tests that need modules the port does not have yet."""
-    name = "port_mirror_" + ref_file.removesuffix(".py")
-    if name in sys.modules or name in _loading:
-        return sys.modules.get(name)  # a helper that imports its importer lazily
-    _loading.add(name)
-    src = (TESTS / ref_file).read_text()
-    src = src.replace("garage_tpu.", "garage_tpu_torch.").replace(
-        "from garage_tpu import", "from garage_tpu_torch import")
-    for helper in sorted(set(re.findall(r"^\s*from (test_\w+) import", src, flags=re.M))):
-        port_mirror(helper + ".py")
-        src = re.sub(rf"^(\s*)from {helper} import", rf"\1from port_mirror_{helper} import",
-                     src, flags=re.M)
-    mod = types.ModuleType(name)
-    mod.__file__ = str(TESTS / ref_file)
-    mod.mirror_source = src
-    sys.modules[name] = mod
-    exec(compile(src, mod.__file__, "exec"), mod.__dict__)
-    if "config_from_dict" in mod.__dict__:
-        mod.config_from_dict = on_cpu(mod.config_from_dict)
-    for t in leave_out:
-        delattr(mod, t)
-    return mod
-
-
-def mirrored_tests(mod: types.ModuleType, prefix: str) -> dict:
-    """The tests of a mirror, renamed `test_<prefix>_<name>`."""
-    return {f"test_{prefix}_{k.removeprefix('test_')}": v
-            for k, v in vars(mod).items() if k.startswith("test_") and callable(v)}
-
-
-# needs api/admin and web/, which come after this part of the port
-S3_LEFT_OUT = ("test_admin_api", "test_bucket_config_and_website")
+S3_LEFT_OUT = ()  # every scenario runs on the port, the admin API and website included
 s3_mirror = port_mirror("test_s3_api.py", S3_LEFT_OUT)
 globals().update(mirrored_tests(s3_mirror, "s3"))
 sigv4_mirror = port_mirror("test_sigv4_vectors.py")

@@ -44,10 +44,15 @@ from garage_tpu_torch.table.replication import TableShardedReplication
 from garage_tpu_torch.table.table import Table
 from garage_tpu_torch.utils.crdt import Bool, Lww
 from test_torch_s3 import mirrored_tests, port_mirror
+from torch_mirror import time_limit
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)
 torch.set_num_threads(1)
+
+# a test still running after 3 minutes ends its worker process, so that no
+# scenario can hold the suite past its clock
+_limit = time_limit(180)
 
 table_mirror = port_mirror("test_table.py")
 globals().update(mirrored_tests(table_mirror, "table"))
