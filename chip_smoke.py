@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the two hand-written kernels from garage_tpu_torch/csrc with nvcc
-(and the host BLAKE3 library with g++), holds each against its plain
-PyTorch version on the card at the shapes the main path gives it
-(tolerance 0: integer math), then drives the erasure-coded data plane,
-the block store through the entry points a storage node calls, and a
-cluster of whole nodes through the S3 API, at EC(8,3) with 1 MiB
-blocks, and a cluster of daemons, each a process of its own:
+(and the host library, BLAKE3 and the native metadata engine, with
+g++), holds each against its plain PyTorch version on the card at the
+shapes the main path gives it (tolerance 0: integer math), then drives
+the erasure-coded data plane, the block store through the entry points
+a storage node calls, and a cluster of whole nodes through the S3 API,
+at EC(8,3) with 1 MiB blocks, and a cluster of daemons, each a process
+of its own, on each metadata engine:
 
   1. device line: name, count, `nvidia-smi` name and power limit
   2. build: both kernels (and the replaced K2 design kept as a
@@ -102,9 +103,24 @@ blocks, and a cluster of daemons, each a process of its own:
      the CUDA platform; boot time, CLI call times, card memory, loop
      lag, request and table latencies, every response status; SIGTERM
      to all, each exits 0
-  10. one JSON line listing each kernel: launches in phase 5 (in phase 6
+  10. the metadata engines, on phase 9's stopped daemons: `convert-db`
+     processes, run side by side, turn the sqlite metadata of daemons
+     1, 4, 7, 10 into the native engine and of daemons 2, 5, 8 into the
+     log engine (0, 3, 6, 9 stay on sqlite; S3 daemon 0 is sqlite, S3
+     daemon 1 native), every tree's rows identical before and after;
+     the 11 daemons booted again on the card with those engines (the
+     native engine's binding read from their logs); every 4 MiB and
+     1 KiB object of phase 9 read through both S3 endpoints; 16 new
+     4 MiB objects PUT (K3 on the card) and read back; SIGTERM to all
+     (each exits 0) and every db reopened in this process, each new
+     object's row on its replicas, log and native dbs among them; then
+     on this host, through the `Db` interface with fsync on, 20,000
+     inserts in transactions of 1 and of 64 and a full scan per engine.
+     Each part's wall
+  11. one JSON line listing each kernel: launches in phase 5 (in phase 6
      for the fan-out; `launches_block_store` in phase 7, `launches_s3`
-     in phase 8, `launches_daemons` in phase 9; the fan-out's two are
+     in phase 8, `launches_daemons` in phase 9, K3's in phase 10 as
+     `k3_launches_engines`; the fan-out's two are
      its dispatches, `tpu_mesh_engaged_total`), mismatches, times and
      bound (K2's with its graph time, the replaced design's times, its
      stack frames, K3 against K1 + K2, and K5's eager and graph times)
@@ -122,6 +138,7 @@ import hashlib
 import json
 import os
 import pstats
+import re
 import shutil
 import subprocess
 import sys
@@ -140,8 +157,10 @@ from garage_tpu_torch.block.codec.ec import EcCodec
 from garage_tpu_torch.block.codec_batch import CodecBatcher
 from garage_tpu_torch.block.repair import ScrubWorker
 from garage_tpu_torch.block.repair_plan import drive_bulk
+from garage_tpu_torch.db import open_db
 from garage_tpu_torch.graft_entry import dryrun_multichip
 from garage_tpu_torch.k2v_client import K2VClient
+from garage_tpu_torch.model.s3.object_table import ObjectTable
 from garage_tpu_torch.models.pipeline import ScrubRepairPipeline, scrub_stats
 from garage_tpu_torch.net.handshake import node_id_of
 from garage_tpu_torch.ops import _build, gf
@@ -158,8 +177,8 @@ from garage_tpu_torch.tools.block_cluster import (
     make_cluster, restart_node, stop_all, stop_node, wait_until,
 )
 from garage_tpu_torch.tools.daemons import (
-    ADMIN_TOKEN, CLI_WALLS, METRICS_TOKEN, WEB_ROOT, Daemon, cli, configure, free_ports,
-    kill_all, metric_samples,
+    ADMIN_TOKEN, CLI_WALLS, METRICS_TOKEN, WEB_ROOT, Daemon, cli, cli_many, configure,
+    free_ports, kill_all, metric_samples,
 )
 from garage_tpu_torch.tools.daemons import stop_all as stop_daemons
 from garage_tpu_torch.tools.k2_compare import (
@@ -173,6 +192,7 @@ from garage_tpu_torch.tools.timing import graph_ms, time_ms
 from garage_tpu_torch.utils.background import WorkerState
 from garage_tpu_torch.utils.data import blake2sum
 from garage_tpu_torch.utils.metrics import registry
+from garage_tpu_torch.utils.serde import unpack
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, at the 700 W limit
 SEED = 0
@@ -1884,6 +1904,7 @@ async def drive_daemons(dev, root: Path, phase8: dict) -> dict:
         res["stop_s"] = time.perf_counter() - t1
         print(f"daemons stop: exit codes {codes} after SIGTERM, {res['stop_s']:.6f} s")
         require(codes == [0] * N_NODES, f"daemons' exit codes after SIGTERM: {codes}")
+        res["fleet"] = {"daemons": daemons, "key": (key_id, secret)}
     except BaseException:
         for d in daemons:  # what each daemon said last, for the failure's reader
             print(f"--- daemon {d.index} log tail:\n{d.tail(15)}", file=sys.stderr)
@@ -1898,12 +1919,237 @@ async def drive_daemons(dev, root: Path, phase8: dict) -> dict:
     return res
 
 
-def run_daemons(dev, phase8: dict) -> dict:
-    root = Path(tempfile.mkdtemp(prefix="daemons-", dir=SCRATCH))
+def run_daemons(dev, root: Path, phase8: dict) -> dict:
+    return asyncio.run(asyncio.wait_for(drive_daemons(dev, root, phase8), DAEMONS_TIMEOUT_S))
+
+
+# --- phase 10: the metadata engines -------------------------------------------------
+
+ENGINE_OF = ("sqlite", "native", "log")  # daemon i: ENGINE_OF[i % 3] (S3 daemon 0 sqlite, 1 native)
+N_NEW = 16  # new 4 MiB objects PUT on the new engines
+META_REPLICAS = 3  # copies of each metadata row at EC(8,3)
+ENGINES_TIMEOUT_S = 600  # a stuck part fails the phase instead of the call
+FIGURE_ROWS, FIGURE_VALUE = 20_000, 100  # the per-engine figure: rows, value bytes
+FIGURE_TX = (1, 64)  # rows per transaction
+BINDING_LINE = re.compile(r"native metadata engine: \S+ through the (\w+) binding")
+
+
+def meta_db(d: Daemon) -> str:
+    return str(d.dir / "meta" / "db")  # what `Garage` opens: <metadata_dir>/db
+
+
+def db_rows(path: str, engine: str) -> dict[str, list]:
+    """Every row of every non-empty tree of a closed db."""
+    db = open_db(path, engine=engine)
     try:
-        return asyncio.run(asyncio.wait_for(drive_daemons(dev, root, phase8), DAEMONS_TIMEOUT_S))
+        trees = {name: list(db.open_tree(name).iter_range()) for name in db.list_trees()}
+        return {name: rows for name, rows in sorted(trees.items()) if rows}
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        db.close()
+
+
+def new_object_rows(d: Daemon, engine: str, keys: list[str]) -> set[str]:
+    """The keys among `keys` whose object row, with a complete version,
+    daemon `d`'s closed db holds."""
+    db = open_db(meta_db(d), engine=engine)
+    try:
+        schema, want, found = ObjectTable(), {k.encode(): k for k in keys}, set()
+        for k, v in db.open_tree(ObjectTable.table_name).iter_range():
+            if k[32:] in want and schema.decode_entry(unpack(v)).last_visible() is not None:
+                found.add(want[k[32:]])
+        return found
+    finally:
+        db.close()
+
+
+def engine_figures(root: Path) -> dict:
+    """On this host, through the `Db` interface, with fsync on: inserts
+    per second of FIGURE_ROWS rows in transactions of 1 and of 64, and
+    the seconds of one full range scan, for each durable engine."""
+    out = {}
+    keys = [b"row%08d" % i for i in range(FIGURE_ROWS)]
+    value = b"v" * FIGURE_VALUE
+    for engine in ("sqlite", "log", "native"):
+        fig = {}
+        for tx in FIGURE_TX:
+            db = open_db(str(root / f"figure-{engine}-{tx}"), engine=engine, fsync=True)
+            try:
+                tree = db.open_tree("figure")
+                t0 = time.perf_counter()
+                for i in range(0, FIGURE_ROWS, tx):
+                    db.transaction(lambda t, ks=keys[i:i + tx]: [t.insert(tree, k, value) for k in ks]
+                                   and None)
+                fig[f"tx{tx}_inserts_per_s"] = FIGURE_ROWS / (time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                n = sum(1 for _ in tree.iter_range())
+                fig[f"tx{tx}_scan_s"] = time.perf_counter() - t0
+                require(n == FIGURE_ROWS, f"figure {engine}: the scan read {n} rows")
+            finally:
+                db.close()
+        out[engine] = fig
+    return out
+
+
+async def drive_engines(dev, fleet: dict) -> dict:
+    """Phase 10's main path: phase 9's stopped daemons, their sqlite
+    metadata converted by `convert-db` to the log and native engines,
+    booted again on the card and driven over HTTP."""
+    cpu = dev.type != "cuda"
+    daemons: list[Daemon] = fleet["daemons"]
+    key_id, secret = fleet["key"]
+    engine = {d.index: ENGINE_OF[d.index % len(ENGINE_OF)] for d in daemons}
+    moved = [d for d in daemons if engine[d.index] != "sqlite"]
+    big, small = s3_objects(np.random.default_rng(SEED + 8))  # phases 8 and 9's objects
+    new = [np.random.default_rng(SEED + 10).integers(0, 256, BIG_BLOCKS * BLOCK, dtype=np.uint8)
+           .tobytes() for _ in range(N_NEW)]
+    big_keys = [f"big/{i:03d}" for i in range(N_BIG)]
+    small_keys = [f"small/{i:04d}" for i in range(N_SMALL)]
+    new_keys = [f"engines/{i:03d}" for i in range(N_NEW)]
+    fleet_metrics = Fleet(daemons)
+    res: dict = {"engines": {str(i): e for i, e in engine.items()}}
+    statuses: Counter = Counter()
+    closing: list = []
+
+    def wall(name, t0):
+        res[name] = {"wall_s": time.perf_counter() - t0}
+        print(f"engines {name}: wall_s={res[name]['wall_s']:.6f}")
+
+    try:
+        t0 = time.perf_counter()
+        before = {d.index: await asyncio.to_thread(db_rows, meta_db(d), "sqlite") for d in moved}
+        await asyncio.to_thread(cli_many, [
+            (d.config, "convert-db", "--input", meta_db(d), "--input-engine", "sqlite",
+             "--output", meta_db(d), "--output-engine", engine[d.index]) for d in moved])
+        for d in moved:
+            after = await asyncio.to_thread(db_rows, meta_db(d), engine[d.index])
+            require(after == before[d.index],
+                    f"convert-db: daemon {d.index}'s {engine[d.index]} rows differ from its sqlite "
+                    f"rows (trees {sorted(after)} vs {sorted(before[d.index])})")
+        wall("convert", t0)
+        rows = {d.index: sum(len(r) for r in before[d.index].values()) for d in moved}
+        print(f"engines convert: {len(moved)} daemons' sqlite metadata by `convert-db` processes "
+              f"run side by side, rows identical after: "
+              + ", ".join(f"daemon {i} -> {engine[i]} {n} rows" for i, n in rows.items()))
+
+        t0 = time.perf_counter()
+        for d in daemons:
+            d.engine = engine[d.index]
+            d.start()
+        for d in daemons:
+            await asyncio.to_thread(d.wait_up, DAEMON_UP_S)
+        async with aiohttp.ClientSession() as sess:
+            async def meshed(d):
+                st = await admin_json(sess, d, "/v1/status")
+                return (st["layoutVersion"] >= 1
+                        and sum(n["isUp"] for n in st["nodes"]) == N_NODES)
+
+            for d in daemons:
+                await poll(f"daemon {d.index} in the mesh on its new engine",
+                           lambda d=d: meshed(d), 120)
+            wall("boot", t0)
+            bindings = set()
+            for d in daemons:
+                if engine[d.index] == "native":
+                    with open(d.log, "rb") as f:
+                        f.seek(d._log_from)
+                        bindings.update(BINDING_LINE.findall(f.read().decode(errors="replace")))
+            require(len(bindings) == 1, f"native daemons' bindings: {sorted(bindings)}")
+            res["native_binding"] = bindings.pop()
+            print(f"engines boot: {N_NODES} daemons up on sqlite, log and native "
+                  f"({json.dumps(res['engines'])}); the native engine's binding in the daemons: "
+                  f"{res['native_binding']}, in this process: {_native.kv_binding()}")
+
+            eps = [daemons[i].url(daemons[i].s3_port) for i in D_ENDPOINTS]
+            clients = {e: [CountingClient(ep, key_id, secret, statuses) for _ in range(S3_CLIENTS)]
+                       for e, ep in zip(D_ENDPOINTS, eps)}
+            closing += [c for cs in clients.values() for c in cs]
+
+            async def get_share(cs, c, ks):
+                return [(k, await cs[c].get_object(S3_BUCKET, k)) for k in ks[c::S3_CLIENTS]]
+
+            async def get_all(keys, bodies):
+                bad = []
+                for e, cs in clients.items():
+                    got = await asyncio.gather(*[get_share(cs, c, keys)
+                                                 for c in range(S3_CLIENTS)])
+                    body_of = dict(zip(keys, bodies))
+                    bad += [(e, k) for kb in got for k, b in kb if b != body_of[k]]
+                return bad
+
+            t0 = time.perf_counter()
+            bad = await get_all(big_keys + small_keys, big + small)
+            wall("read", t0)
+            require(not bad, f"GET on the new engines: {bad[:4]} differ from phase 9's PUTs")
+            print(f"engines read: {N_BIG} objects of 4 MiB and {N_SMALL} of 1 KiB from phase 9, "
+                  f"byte-identical through both S3 endpoints (daemons {list(D_ENDPOINTS)}: "
+                  f"{engine[D_ENDPOINTS[0]]}, {engine[D_ENDPOINTS[1]]})")
+
+            await fleet_metrics.scrape(sess)
+            k3_before = Fleet.launches(fleet_metrics.totals())["k3"]
+            etags: dict[str, str] = {}
+            writers = clients[D_ENDPOINTS[0]]
+
+            async def put_share(c):
+                for k, body in list(zip(new_keys, new))[c::S3_CLIENTS]:
+                    etags[k] = await writers[c].put_object(S3_BUCKET, k, body)
+
+            t0 = time.perf_counter()
+            await asyncio.gather(*[put_share(c) for c in range(S3_CLIENTS)])
+            wall("write", t0)
+            await fleet_metrics.scrape(sess)
+            res["write"]["k3_launches"] = Fleet.launches(fleet_metrics.totals())["k3"] - k3_before
+            require(all(etags[k] == hashlib.md5(b).hexdigest() for k, b in zip(new_keys, new)),
+                    "PUT on the new engines: an ETag is not the MD5 of its body")
+            require(cpu or res["write"]["k3_launches"] > 0, "the new PUTs never launched K3")
+            t0 = time.perf_counter()
+            bad = await get_all(new_keys, new)
+            wall("read_new", t0)
+            require(not bad, f"the new objects read back differ: {bad[:4]}")
+            print(f"engines write: {N_NEW} objects of 4 MiB PUT and read back through both "
+                  f"endpoints; K3 launches {res['write']['k3_launches']}")
+
+        t0 = time.perf_counter()
+        codes = await asyncio.to_thread(stop_daemons, daemons, DAEMON_STOP_S)
+        wall("stop", t0)
+        require(codes == [0] * N_NODES, f"daemons' exit codes after SIGTERM: {codes}")
+        t0 = time.perf_counter()
+        holders: dict[str, list[int]] = {k: [] for k in new_keys}
+        for d in daemons:
+            for k in await asyncio.to_thread(new_object_rows, d, engine[d.index], new_keys):
+                holders[k].append(d.index)
+        wall("reopen", t0)
+        counts = Counter(len(v) for v in holders.values())
+        on = {e: sorted({i for v in holders.values() for i in v if engine[i] == e})
+              for e in ("log", "native")}
+        require(all(len(v) == META_REPLICAS for v in holders.values()),
+                f"after SIGTERM: a new object's row is not on its {META_REPLICAS} replicas: {holders}")
+        require(on["log"] and on["native"],
+                f"after SIGTERM: no log or no native db holds a new object's row: {on}")
+        res["new_rows_replicas"] = {str(n): c for n, c in sorted(counts.items())}
+        print(f"engines restart: exit codes {codes} after SIGTERM; reopened in this process, "
+              f"every new object's row is on its replicas (replicas per row: "
+              f"{json.dumps(res['new_rows_replicas'])}), log dbs of daemons {on['log']} and "
+              f"native dbs of daemons {on['native']} among them")
+    except BaseException:
+        for d in daemons:
+            print(f"--- daemon {d.index} log tail:\n{d.tail(15)}", file=sys.stderr)
+        raise
+    finally:
+        for c in closing:
+            await c.close()
+        kill_all(daemons)
+    codes = {str(k): n for k, n in sorted(statuses.items(), key=str)}
+    require(all(200 <= int(k) < 300 for k in statuses), f"response statuses {codes}: want 2xx")
+    res["statuses"] = codes
+    return res
+
+
+def run_engines(dev, root: Path, fleet: dict) -> dict:
+    res = asyncio.run(asyncio.wait_for(drive_engines(dev, fleet), ENGINES_TIMEOUT_S))
+    t0 = time.perf_counter()
+    res["figures"] = engine_figures(root)
+    res["figures_wall_s"] = time.perf_counter() - t0
+    return res
 
 
 def main() -> int:
@@ -1937,7 +2183,7 @@ def main() -> int:
     print(f"ptxas K2 stack frames (bytes): {json.dumps(stack_frames)}")
     t0 = time.perf_counter()
     lib = _native.build()
-    print(f"build: host BLAKE3 {lib.name} wall_s={time.perf_counter() - t0:.3f}")
+    print(f"build: host library (BLAKE3, kvlog) {lib.name} wall_s={time.perf_counter() - t0:.3f}")
     ops = sass_int_ops(_build._target("blake3"), "blake3_small_kernel")
     print(f"sass blake3_small_kernel (one compression in its loop): "
           f"{ops if ops is None else json.dumps(ops)} "
@@ -2002,14 +2248,27 @@ def main() -> int:
           f"{json.dumps({k: round(v['wall_s'], 6) for k, v in parts.items()})}; kernel_s "
           f"{json.dumps({k: round(v['kernel_s'], 6) for k, v in parts.items()})} on {card}")
 
-    daemons = run_daemons(dev, s3)
-    d_launches = daemons["launches"]
-    for k, what in (("k3", "K3"), ("k1", "K1"), ("k2", "K2")):
-        require(d_launches[k] > 0, f"the daemons never launched {what}")
-    walls = {k: round(v["wall_s"], 6) for k, v in daemons.items()
-             if isinstance(v, dict) and "wall_s" in v}
-    print(f"daemons: {N_NODES} processes EC({K},{M}), launches K1 {d_launches['k1']} "
-          f"K2 {d_launches['k2']} K3 {d_launches['k3']}; wall_s {json.dumps(walls)} on {card}")
+    root = Path(tempfile.mkdtemp(prefix="daemons-", dir=SCRATCH))
+    try:
+        daemons = run_daemons(dev, root, s3)
+        d_launches = daemons["launches"]
+        for k, what in (("k3", "K3"), ("k1", "K1"), ("k2", "K2")):
+            require(d_launches[k] > 0, f"the daemons never launched {what}")
+        walls = {k: round(v["wall_s"], 6) for k, v in daemons.items()
+                 if isinstance(v, dict) and "wall_s" in v}
+        print(f"daemons: {N_NODES} processes EC({K},{M}), launches K1 {d_launches['k1']} "
+              f"K2 {d_launches['k2']} K3 {d_launches['k3']}; wall_s {json.dumps(walls)} on {card}")
+
+        t0 = time.perf_counter()
+        engines = run_engines(dev, root, daemons["fleet"])
+        walls = {k: v["wall_s"] for k, v in engines.items() if isinstance(v, dict) and "wall_s" in v}
+        print(f"engines: phase wall_s={time.perf_counter() - t0:.6f} (figures "
+              f"{engines['figures_wall_s']:.6f}); parts wall_s {json.dumps(walls)}; native binding "
+              f"{engines['native_binding']}; statuses {json.dumps(engines['statuses'])} on {card}")
+        print(f"engines figure (this host, through the Db interface, fsync on, "
+              f"{FIGURE_ROWS} rows of {FIGURE_VALUE} B): {json.dumps(engines['figures'])} on {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     main_k1 = k1["ec83_encode"]
     main_k2 = k2[(64 * (K + M), 131072)]
@@ -2035,6 +2294,7 @@ def main() -> int:
             "launches_block_store": store_launches["blake3"],
             "launches_s3": s3_launches["blake3"], "k3_launches_s3": s3_launches["k3"],
             "launches_daemons": d_launches["k2"], "k3_launches_daemons": d_launches["k3"],
+            "k3_launches_engines": engines["write"]["k3_launches"],
             "mismatches": sum(r["mismatches"] for r in k2.values())
             + slice_res["hash_mismatches"],
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),

@@ -36,8 +36,11 @@ found under the same name):
   rpc/, net/, db/       cluster layout, peering, quorum RPC, discovery,
                         the shedding ladder; the encrypted
                         TCP mesh (the reference's wire protocol); the
-                        metadata db (memory, sqlite)
-  _native/              host BLAKE3 in C++ (single pieces), built by g++
+                        metadata db (memory, sqlite, log, native — the
+                        last two share one write-ahead log format)
+  _native/              host BLAKE3 (single pieces) and the native
+                        metadata engine (kvlog.cpp, bound by kvpy.cpp) in
+                        C++, built by g++
   block/codec_batch.py  CodecBatcher — coalesces concurrent encodes and
                         degraded-read decodes into one dispatch
   block/codec/          EcCodec — bytes <-> (B, k, S) shard batches
@@ -52,6 +55,9 @@ found under the same name):
   ops/_build.py         nvcc build of csrc/ at first use, ctypes binding
   ops/gf.py, ops/blake3_ref.py  numpy / pure-Python oracles
   utils/                serde, CRDTs, config, workers, tracing, metrics
+  analysis/             graft-lint, the static-analysis plane: async
+                        hazards, invariants, and the torch/CUDA device
+                        boundary (`python -m garage_tpu_torch.analysis`)
   tools/                kernel timing on the card (CUDA events, graph
                         replay), the K1 variant comparison, and
                         in-process clusters of block-store nodes and of

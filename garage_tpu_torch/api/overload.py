@@ -240,7 +240,7 @@ class AdmissionController:
                 "api_admission_tenant_evictions_total", (("kind", kind),)
             )
         table[ident] = b
-        # claimed pre-auth id as a label value is by design — metrics._fmt applies _esc to EVERY label at exposition, so a hostile id cannot corrupt the scrape
+        # graft-lint: allow-taint(claimed pre-auth id as a label value is by design — metrics._fmt applies _esc to EVERY label at exposition, so a hostile id cannot corrupt the scrape)
         self.registry.register_gauge(
             gauge, ((label, ident), ("id", self._gauge_id)), b.level
         )
@@ -331,7 +331,7 @@ class AdmissionController:
 
             observatory.record_shed(key_id)
         except Exception:  # noqa: BLE001
-            pass  # accounting must never turn a shed into a 500
+            pass  # graft-lint: allow-swallow(accounting must never turn a shed into a 500)
 
     def _release(self, exempt: bool = False) -> None:
         # queued waiters poll on _QUEUE_QUANTUM, so freeing a slot is

@@ -350,7 +350,7 @@ class BlockManager:
             from ..net.fault import InjectedDiskFault
 
             raise InjectedDiskFault("injected block write fault")
-        async with self._locks[hash32[0]]:  # the per-prefix write lock intentionally spans the threaded write: shard serialization is the contract
+        async with self._locks[hash32[0]]:  # graft-lint: allow-lock-await(per-prefix write lock intentionally spans the threaded write: shard serialization is the contract)
             existing = self.find_block_file(hash32, piece=piece)
             if existing is not None:
                 ex_path, ex_comp = existing

@@ -96,6 +96,7 @@ def codec_device(tpu: TpuConfig) -> str:
     kernels' plain versions) when `[tpu]` asks for the CPU, with
     `enable = false` or `platform = "cpu"`; otherwise "cuda", which must
     be present: a node never falls back to the CPU on its own."""
+    # graft-lint: allow-backend-gate(a config value naming the device asked for, not a probed backend: platform = "cpu" is the documented opt-out)
     if not tpu.enable or tpu.platform == "cpu":
         return "cpu"
     if not torch.cuda.is_available():

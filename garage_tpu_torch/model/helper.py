@@ -57,7 +57,7 @@ class GarageHelper:
     async def create_bucket(self, name: str) -> bytes:
         if not valid_bucket_name(name, self.garage.config.allow_punycode):
             raise Error(f"invalid bucket name {name!r}")
-        async with self.lock:  # admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold
+        async with self.lock:  # graft-lint: allow-lock-await(admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold)
             existing = await self.garage.bucket_alias_table.get(name.encode(), b"")
             if existing is not None and existing.state.get() is not None:
                 raise Error(f"bucket {name!r} already exists")
@@ -75,7 +75,7 @@ class GarageHelper:
 
     async def delete_bucket(self, bucket_id: bytes) -> None:
         """Delete an EMPTY bucket and its aliases."""
-        async with self.lock:  # admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold
+        async with self.lock:  # graft-lint: allow-lock-await(admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold)
             bucket = await self.get_bucket(bucket_id)
             objs = await self.garage.object_table.get_range(
                 bucket_id, None, "visible", 1
@@ -111,7 +111,7 @@ class GarageHelper:
     async def set_global_alias(self, bucket_id: bytes, alias: str) -> None:
         if not valid_bucket_name(alias, self.garage.config.allow_punycode):
             raise Error(f"invalid alias {alias!r}")
-        async with self.lock:  # admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold
+        async with self.lock:  # graft-lint: allow-lock-await(admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold)
             bucket = await self.get_bucket(bucket_id)
             existing = await self.garage.bucket_alias_table.get(alias.encode(), b"")
             if (
@@ -131,7 +131,7 @@ class GarageHelper:
             await self.garage.bucket_table.insert(bucket)
 
     async def unset_global_alias(self, bucket_id: bytes, alias: str) -> None:
-        async with self.lock:  # admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold
+        async with self.lock:  # graft-lint: allow-lock-await(admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold)
             bucket = await self.get_bucket(bucket_id)
             params = bucket.params()
             live = [n for n, v in params.aliases.items() if v]
@@ -157,7 +157,7 @@ class GarageHelper:
     async def set_local_alias(self, bucket_id: bytes, key_id: str, alias: str) -> None:
         if not valid_bucket_name(alias, self.garage.config.allow_punycode):
             raise Error(f"invalid alias {alias!r}")
-        async with self.lock:  # admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold
+        async with self.lock:  # graft-lint: allow-lock-await(admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold)
             await self.get_bucket(bucket_id)
             key = await self.get_key(key_id)
             cur = key.params().local_aliases.get(alias)
@@ -167,7 +167,7 @@ class GarageHelper:
             await self.garage.key_table.insert(key)
 
     async def unset_local_alias(self, bucket_id: bytes, key_id: str, alias: str) -> None:
-        async with self.lock:  # admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold
+        async with self.lock:  # graft-lint: allow-lock-await(admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold)
             key = await self.get_key(key_id)
             cur = key.params().local_aliases.get(alias)
             if cur is None or bytes(cur) != bucket_id:
@@ -183,7 +183,7 @@ class GarageHelper:
         return key
 
     async def delete_key(self, key_id: str) -> None:
-        async with self.lock:  # admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold
+        async with self.lock:  # graft-lint: allow-lock-await(admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold)
             key = await self.get_key(key_id)
             key.state = Deletable.deleted()
             await self.garage.key_table.insert(key)
@@ -198,7 +198,7 @@ class GarageHelper:
         name: str | None = None,
         allow_create_bucket: bool | None = None,
     ) -> Key:
-        async with self.lock:  # admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold
+        async with self.lock:  # graft-lint: allow-lock-await(admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold)
             key = await self.get_key(key_id)
             if name is not None:
                 key.params().name.update(name)
@@ -214,7 +214,7 @@ class GarageHelper:
 
         if not key_id.startswith("GK") or len(secret) != 64:
             raise Error("malformed key id or secret")
-        async with self.lock:  # admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold
+        async with self.lock:  # graft-lint: allow-lock-await(admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold)
             existing = await self.garage.key_table.get(key_id.encode(), b"")
             if existing is not None:
                 # a deleted key leaves a delete-wins CRDT tombstone: an
@@ -236,7 +236,7 @@ class GarageHelper:
     ) -> None:
         from ..utils.time_util import now_msec
 
-        async with self.lock:  # admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold
+        async with self.lock:  # graft-lint: allow-lock-await(admin-plane RMW serialization: the global helper lock must span the table quorum ops; no nested locks, RPC timeouts bound the hold)
             key = await self.get_key(key_id)
             await self.get_bucket(bucket_id)  # must exist
             perm = BucketKeyPerm(now_msec(), read, write, owner)

@@ -333,7 +333,7 @@ class K2VRpcHandler:
         from ...utils.data import blake2sum
 
         lock = self._locks[blake2sum(key)[0]]
-        async with lock:  # causal RMW: the sharded item lock must span read-merge-write or concurrent inserts lose causality
+        async with lock:  # graft-lint: allow-lock-await(causal RMW: the sharded item lock must span read-merge-write or concurrent inserts lose causality)
             existing = await table.get(bucket_id + pk.encode(), sk.encode())
             item = existing or K2VItem(bucket_id, pk, sk)
             new_t = item.update(

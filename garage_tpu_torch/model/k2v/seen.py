@@ -108,6 +108,6 @@ class RangeSeenMarker:
                     for sk, vc in item_rows
                 },
             )
-        # malformed client token decodes to None by contract
+        # graft-lint: allow-swallow(malformed client token decodes to None by contract)
         except Exception:  # noqa: BLE001 — any malformed token is invalid
             return None

@@ -30,7 +30,7 @@ def take_snapshot(garage) -> str:
     # db.snapshot below blocks by design — the engine's connection is not
     # thread-safe, so the whole snapshot pass runs on the loop; offloading
     # just the mkdir/rotation around it would be theater
-    # snapshot pass blocks by design, db conn not thread-safe
+    # graft-lint: allow-blocking(snapshot pass blocks by design, db conn not thread-safe)
     os.makedirs(base, exist_ok=True)
     name = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
     dest = os.path.join(base, name)
@@ -42,7 +42,7 @@ def take_snapshot(garage) -> str:
         e for e in os.listdir(base) if re.fullmatch(r"\d{8}T\d{6}Z", e)
     )
     for old in snaps[:-KEEP]:
-        # rotation rides the already-blocking snapshot pass
+        # graft-lint: allow-blocking(rotation rides the already-blocking snapshot pass)
         shutil.rmtree(os.path.join(base, old), ignore_errors=True)
     logger.info("metadata snapshot written to %s", dest)
     return dest

@@ -198,7 +198,7 @@ class NetApp:
         if peer_id is not None and peer_id in self.conns:
             return peer_id
         lock = self._connecting.setdefault(peer_id or b"?" + repr(addr).encode(), asyncio.Lock())
-        async with lock:  # dial-dedup lock: holding it across the dial IS the mechanism that collapses concurrent connects to one
+        async with lock:  # graft-lint: allow-lock-await(dial-dedup lock: holding it across the dial IS the mechanism that collapses concurrent connects to one)
             if peer_id is not None and peer_id in self.conns:
                 return peer_id
             reader, writer = await asyncio.open_connection(addr[0], addr[1])

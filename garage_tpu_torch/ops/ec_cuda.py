@@ -110,11 +110,9 @@ def gf_bitmatmul_cuda(
         raise ValueError(f"out must be ({b}, {r}, {s}) uint8, got {tuple(out.shape)}")
     if not (bitmat.device == x.device == out.device):
         raise ValueError("bitmat, x and out must share a device")
-    if x.device.type == "cpu":
+    if telemetry.runs_on_host(x):
         out.copy_(gf_bitmatmul(bitmat, x))
         return out
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     if x.stride(2) != 1 or out.stride(2) != 1 or not bitmat.is_contiguous():
         raise ValueError("the shard axis of x and out, and bitmat, must be contiguous")
     if b == 0 or s == 0 or r == 0:
@@ -147,7 +145,7 @@ def encode_hash_tensor(
     that pair on the card."""
     parity = gf_bitmatmul_cuda(bitmat, x)
     hashes = blake3_pieces(x, parity)
-    if x.device.type == "cuda":
+    if not telemetry.runs_on_host(x):
         _build.count_launch(encode_hash_tensor)
     return parity, hashes
 
@@ -235,7 +233,7 @@ class EcCuda:
             return 1
         if self._n_dev is not None:
             return self._n_dev
-        return torch.cuda.device_count() if self.device.type == "cuda" else 1
+        return 1 if telemetry.runs_on_host(self.device) else torch.cuda.device_count()
 
     def _bitmat(self, key, dev: torch.device) -> torch.Tensor:
         """The bit-matrix of coding matrix `key` (None: encode; else a

@@ -18,6 +18,7 @@ import torch
 
 from . import _build
 from .blake3_ref import CHUNK_END, CHUNK_START, IV, MSG_PERMUTATION, PARENT, ROOT
+from .telemetry import runs_on_host
 
 BLOCK_LEN = 64
 CHUNK_LEN = 1024
@@ -171,10 +172,8 @@ def blake3_batch(x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2 or x.dtype != torch.uint8:
         raise ValueError(f"expected a (B, L) uint8 tensor, got {tuple(x.shape)} {x.dtype}")
     n_chunks_for_len(x.shape[1])
-    if x.device.type == "cpu":
+    if runs_on_host(x):
         return blake3_batch_ref(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     _check_rows(x, (x.stride(0),), "blake3_batch")
     return _hash_rows(x.shape[0], x.shape[1], x, 1, (x.stride(0), x.stride(0)))
 
@@ -198,10 +197,8 @@ def blake3_pieces(data: torch.Tensor, parity: torch.Tensor) -> torch.Tensor:
     if data.device != parity.device:
         raise ValueError("data and parity must share a device")
     n_chunks_for_len(s)
-    if data.device.type == "cpu":
+    if runs_on_host(data):
         return blake3_pieces_ref(data, parity)
-    if data.device.type != "cuda":
-        raise ValueError(f"unsupported device {data.device}")
     _check_rows(data, data.stride()[:2], "data")
     _check_rows(parity, parity.stride()[:2], "parity")
     return _hash_rows(b, s, data, k, data.stride()[:2], parity, m,

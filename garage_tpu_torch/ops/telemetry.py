@@ -68,6 +68,19 @@ def is_host_platform(platform: str | None) -> bool:
     return platform is None or platform in ("cpu", "unknown", "")
 
 
+def runs_on_host(where) -> bool:
+    """THE kernel wrappers' and entry points' device check: True for a
+    CPU tensor or device (the plain version serves it), False for CUDA
+    (the kernel launches); any other device raises, a refusal and not
+    a fallback."""
+    dev = where.device if isinstance(where, torch.Tensor) else torch.device(where)
+    if dev.type == "cpu":
+        return True
+    if dev.type == "cuda":
+        return False
+    raise ValueError(f"unsupported device {dev}")
+
+
 def platforms_seen() -> list[str]:
     """Platforms that have served a dispatch in this process."""
     return sorted(_platforms_seen)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.bucketing import pad_to_bucket
+from ..ops.telemetry import runs_on_host
 
 __all__ = ["Mesh", "make_mesh", "resolve_device"]
 
@@ -32,16 +33,15 @@ def resolve_device(device) -> torch.device:
     """The torch.device an entry point runs on.  A CUDA device on a
     machine without CUDA raises: nothing quietly runs on the CPU."""
     dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA device requested but torch.cuda.is_available() is "
-                "False; pass device='cpu' to run the plain versions"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
+    if runs_on_host(dev):
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain versions"
+        )
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -106,7 +106,7 @@ class Mesh:
             if stream is not None:
                 torch.cuda.current_stream(dev).wait_stream(stream)
         for t in results:
-            if t.device.type == "cuda":
+            if not runs_on_host(t):
                 t.record_stream(torch.cuda.current_stream(t.device))
 
     def gather(self, parts: list[torch.Tensor]) -> torch.Tensor:

@@ -244,7 +244,7 @@ class TenantObservatory:
                 cls = self.class_resolver(key_id)
             except Exception:  # noqa: BLE001
                 # a broken resolver must not turn a shed into a crash
-                cls = None  # swallowed on purpose: shed still counts, under the default class
+                cls = None  # graft-lint: allow-swallow(shed still counts, under the default class)
         self.registry.incr(
             "api_tenant_class_sheds_total",
             (("class", cls or DEFAULT_CLASS),),
@@ -519,7 +519,7 @@ def _maybe_hog_event(garage, hog: dict) -> None:
             severity="warn",
         )
     except Exception as e:  # noqa: BLE001
-        # swallowed on purpose: observability-of-observability: a broken flight recorder must not fail the tenants endpoint
+        # graft-lint: allow-swallow(observability-of-observability: a broken flight recorder must not fail the tenants endpoint)
         logger.debug("tenant-hog event emission failed: %r", e)
 
 

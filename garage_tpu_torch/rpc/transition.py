@@ -265,7 +265,7 @@ class TransitionTracker:
         }
         try:
             flight.record_event("transition-report", attrs, severity=severity)
-        # swallowed on purpose: the report is kept as last_report either way
+        # graft-lint: allow-swallow(the report is kept as last_report either way)
         except Exception:  # noqa: BLE001 — narration must not break layout
             logger.exception("transition-report event emission failed")
         logger.info(
@@ -373,7 +373,7 @@ class TransitionTracker:
                     default=0.0,
                 )
                 self._max_burn = max(self._max_burn, burn)
-            # swallowed on purpose: SLO sampling is an optional report enrichment
+            # graft-lint: allow-swallow(SLO sampling is an optional report enrichment)
             except Exception:  # noqa: BLE001
                 logger.debug("slo sampling during transition failed",
                              exc_info=True)

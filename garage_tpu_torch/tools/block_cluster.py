@@ -82,6 +82,7 @@ async def start_node(
     factor is `rf`, by default the codec's piece count."""
     meta = str(Path(root) / f"meta{index}")
     data = str(Path(root) / f"data{index}")
+    # graft-lint: allow-blocking(harness set-up: one mkdir for a node that is not serving yet)
     os.makedirs(meta, exist_ok=True)
     rf = rf or codec.n_pieces
     lm = LayoutManager(app.id, rf, persister=Persister(meta, "cluster_layout", PersistedLayout))

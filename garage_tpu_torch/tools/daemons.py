@@ -78,6 +78,7 @@ class Daemon:
     mode: str | None = "ec:2:1"  # None: one copy of each block (replication_factor 1)
     block_size: int = 65536
     cpu: bool = False  # True: [tpu] enable = false, the kernels' plain versions
+    engine: str = "sqlite"  # db_engine: "sqlite", "log", "native" or "memory"
     s3_port: int | None = None
     k2v_port: int | None = None
     web_port: int | None = None
@@ -117,7 +118,7 @@ class Daemon:
             keyfile.write_bytes(self.node_key)
             keyfile.chmod(0o600)
         top = {"metadata_dir": str(self.dir / "meta"), "data_dir": str(self.dir / "data"),
-               "db_engine": "sqlite", "block_size": self.block_size,
+               "db_engine": self.engine, "block_size": self.block_size,
                "rpc_bind_addr": self.rpc_addr, "rpc_public_addr": self.rpc_addr,
                "rpc_secret": RPC_SECRET, "bootstrap_peers": self.peers}
         if self.mode:

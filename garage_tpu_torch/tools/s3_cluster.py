@@ -70,7 +70,9 @@ def make_garage(config: Config, key: bytes | None = None) -> Garage:
     node has none yet."""
     keyfile = os.path.join(config.metadata_dir, "node_key")
     if key is not None and not os.path.exists(keyfile):
+        # graft-lint: allow-blocking(harness set-up: the node key is written once, before the node serves)
         os.makedirs(config.metadata_dir, exist_ok=True)
+        # graft-lint: allow-blocking(harness set-up: the node key is written once, before the node serves)
         with open(keyfile, "wb") as f:
             f.write(key)
         os.chmod(keyfile, 0o600)

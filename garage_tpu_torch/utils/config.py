@@ -535,11 +535,11 @@ def _parse_toml_minimal(text: str) -> dict[str, Any]:
 def read_config(path: str) -> Config:
     # the loop is not serving traffic before the config exists
     if tomllib is not None:
-        # startup-only config read
+        # graft-lint: allow-blocking(startup-only config read)
         with open(path, "rb") as f:
             raw = tomllib.load(f)
     else:
-        # startup-only config read
+        # graft-lint: allow-blocking(startup-only config read)
         with open(path, encoding="utf-8") as f:
             raw = _parse_toml_minimal(f.read())
     return config_from_dict(raw)

@@ -89,7 +89,7 @@ def _task_trace_id(task) -> str:
                     if isinstance(s, Span):
                         return s.trace_id.hex()
         return ""
-    # swallowed on purpose: best-effort trace-id recovery from frame locals
+    # graft-lint: allow-swallow(best-effort trace-id recovery from frame locals)
     except Exception:  # noqa: BLE001
         return ""
 
@@ -177,7 +177,7 @@ class EventLoopWatchdog:
                     if self.on_stall is not None:
                         try:
                             self.on_stall(overdue, self._loop, self._loop_ident)
-                        # swallowed on purpose: stall diagnostics must never take the watchdog thread down
+                        # graft-lint: allow-swallow(stall diagnostics must never take the watchdog thread down)
                         except Exception:  # noqa: BLE001
                             pass
             else:
@@ -215,7 +215,7 @@ class EventLoopWatchdog:
                     + (f" trace={tid}" if tid else "")
                     + f": {where}"
                 )
-            # swallowed on purpose: task-dump is best-effort diagnostics mid-stall
+            # graft-lint: allow-swallow(task-dump is best-effort diagnostics mid-stall)
             except Exception:  # noqa: BLE001
                 continue
         logger.warning("%s", "\n".join(parts))
@@ -352,7 +352,7 @@ def _build_record(root, tree, duration_ms: float) -> dict:
         waterfall = critical_path(root, tree)
         if not waterfall["phases"]:
             waterfall = None
-    # swallowed on purpose: waterfall is an optional enrichment of the slow record
+    # graft-lint: allow-swallow(waterfall is an optional enrichment of the slow record)
     except Exception:  # noqa: BLE001 — diagnostics must never raise
         waterfall = None
     return {

@@ -113,7 +113,7 @@ class Metrics:
                 continue
             try:
                 total += float(fn())
-            # a raising gauge fn means "no sample"; logging per scrape would spam
+            # graft-lint: allow-swallow(a raising gauge fn means "no sample"; logging per scrape would spam)
             except Exception:  # noqa: BLE001
                 continue
         return total
@@ -230,7 +230,7 @@ class Metrics:
         for (name, labels), fn in self._gauge_fns.items():
             try:
                 gauges[(name, labels)] = float(fn())
-            # a raising gauge fn means "no sample"; logging per scrape would spam
+            # graft-lint: allow-swallow(a raising gauge fn means "no sample"; logging per scrape would spam)
             except Exception:  # noqa: BLE001 — a dead gauge must not kill scrape
                 continue
         last = None

@@ -93,7 +93,7 @@ def _all_tasks(loop) -> set:
             return asyncio.all_tasks(loop)
         except RuntimeError:
             continue
-        # swallowed on purpose: diagnostics must never raise; sampler gives up quietly
+        # graft-lint: allow-swallow(diagnostics must never raise; sampler gives up quietly)
         except Exception:  # noqa: BLE001 — diagnostics must never raise
             break
     return set()
@@ -204,7 +204,7 @@ class SamplingProfiler:
         for task in _all_tasks(self.loop):
             try:
                 frames = _task_frames(task)
-            # swallowed on purpose: profiler samples at ~100 Hz; a vanished task is not news
+            # graft-lint: allow-swallow(profiler samples at ~100 Hz; a vanished task is not news)
             except Exception:  # noqa: BLE001
                 continue
             if not frames:
@@ -292,6 +292,6 @@ class StallProfiler:
                 },
                 severity="warn",
             )
-        # swallowed on purpose: stall diagnostics must never take the watchdog thread down
+        # graft-lint: allow-swallow(stall diagnostics must never take the watchdog thread down)
         except Exception:  # noqa: BLE001
             return

@@ -33,11 +33,9 @@ CARD_PATH = [
 ]
 FORBIDDEN_TOP = ("jax", "jaxlib", "garage_tpu")
 # lazy imports, inside functions that the ported paths do not reach, of
-# modules a later part of the port brings: (importing file, module)
-DEFERRED = {
-    ("garage_tpu_torch/db/open.py", "garage_tpu_torch.db.log_engine"),
-    ("garage_tpu_torch/db/open.py", "garage_tpu_torch.db.native_engine"),
-}
+# modules a later part of the port brings: (importing file, module).
+# Empty: every module of the reference has its counterpart
+DEFERRED: set[tuple[str, str]] = set()
 
 
 def forbidden(module: str) -> bool:

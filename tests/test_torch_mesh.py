@@ -217,3 +217,25 @@ def test_dryrun_multichip_on_cpu_mesh():
     summary = graft_entry.dryrun_multichip(N, device="cpu")
     assert summary["mesh"] == ["cpu"] * N and summary["ec164_batch"] == N + 3
     assert registry.counter_family_sum("tpu_mesh_engaged_total") >= before + 2
+
+
+def test_a_device_with_no_kernel_is_refused():
+    """The wrappers and the entry points share one device check
+    (`telemetry.runs_on_host`): the CPU takes the plain version, and a
+    device that is neither the CPU nor CUDA raises instead of falling
+    back."""
+    from garage_tpu_torch.ops import telemetry
+    from garage_tpu_torch.ops.hash_cuda import blake3_batch, blake3_pieces
+    from garage_tpu_torch.parallel.mesh import resolve_device
+
+    assert telemetry.runs_on_host("cpu") and telemetry.runs_on_host(torch.zeros(1))
+    assert not telemetry.runs_on_host("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    meta = torch.empty((2, 4, 64), dtype=torch.uint8, device="meta")
+    bitmat = torch.empty((16, 32), dtype=torch.uint8, device="meta")
+    for call in (lambda: resolve_device("meta"),
+                 lambda: ec_cuda.gf_bitmatmul_cuda(bitmat, meta),
+                 lambda: blake3_batch(meta[:, 0]),
+                 lambda: blake3_pieces(meta, meta[:, :2])):
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            call()

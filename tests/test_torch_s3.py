@@ -12,7 +12,11 @@ to the reference on the CPU.
   - the SigV4 vectors of tests/test_sigv4_vectors.py against the port's
     `api/common/signature.py`, the same way;
   - the aborted-overwrite race of tests/test_put_abort_race.py on port
-    nodes, held to that file's stated assertions, the same way;
+    nodes, held to that file's stated assertions, the same way; its
+    first scenario with the object table's anti-entropy held off once
+    every node's first round is done, so node 1's injected row cannot
+    reach the others before the abort does (the order the scenario
+    states);
   - cross checks: the reference's `S3Client` against a port node and
     the port's `S3Client` against a reference node give the same
     statuses, ETags, object bytes and parsed listings.
@@ -49,6 +53,41 @@ globals().update(mirrored_tests(sigv4_mirror, "sigv4"))
 frozen_clock = sigv4_mirror.frozen_clock  # the vectors' fixture
 abort_mirror = port_mirror("test_put_abort_race.py")
 globals().update(mirrored_tests(abort_mirror, "abort_race"))
+
+
+async def hold_object_sync(garages, timeout: float = 30.0) -> None:
+    """Wait until each node's object-table sync worker has finished a
+    round at the current placement, then hold its further rounds off
+    (the placement no longer changes in the scenario): from here on no
+    row moves between nodes but through the scenario's own steps."""
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout
+    for g in garages:
+        name = f"sync:{g.object_table.schema.table_name}"
+        worker = next(w for w, _i, _t in g.bg.workers.values() if w.name() == name)
+        placement = g.layout_manager.history.placement_digest
+        while worker._last_placement != placement():
+            assert loop.time() < deadline, f"{name}: no clean round in {timeout} s"
+            await asyncio.sleep(0.05)
+        g.object_table.syncer.anti_entropy_interval = float("inf")
+
+
+def test_abort_race_partial_complete_then_abort_tombstones_last_acked_version(
+        tmp_path, monkeypatch):
+    """The reference's first scenario of tests/test_put_abort_race.py on
+    port nodes, with the anti-entropy order fixed: the object table's
+    rounds are done before node 1 takes the injected "complete" row and
+    held off after, so that row reaches the other nodes only through the
+    scenario's abort, and every GET reads "version data missing"."""
+    boot = abort_mirror.boot_cluster
+
+    async def boot_and_hold_sync(root):
+        booted = await boot(root)
+        await hold_object_sync(booted[0])
+        return booted
+
+    monkeypatch.setattr(abort_mirror, "boot_cluster", boot_and_hold_sync)
+    abort_mirror.test_partial_complete_then_abort_tombstones_last_acked_version(tmp_path)
 
 
 def run(coro):
