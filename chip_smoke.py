@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the two hand-written kernels from garage_tpu_torch/csrc with nvcc
-(and the host library, BLAKE3 and the native metadata engine, with
-g++), holds each against its plain PyTorch version on the card at the
+(and the host library, the GF(2^8) host codec, BLAKE3 and the native
+metadata engine, with g++), holds each against its plain PyTorch version on the card at the
 shapes the main path gives it (tolerance 0: integer math), then drives
 the erasure-coded data plane, the block store through the entry points
 a storage node calls, and a cluster of whole nodes through the S3 API,
@@ -117,7 +117,17 @@ of its own, on each metadata engine:
      on this host, through the `Db` interface with fsync on, 20,000
      inserts in transactions of 1 and of 64 and a full scan per engine.
      Each part's wall
-  11. one JSON line listing each kernel: launches in phase 5 (in phase 6
+  11. the host codec (`_native/gf8.cpp`, no TPU kernel: what a CPU codec
+     or `[block] batch_impl = "host"` runs) on this card's host:
+     `gf8_apply` against K1 on the card and against `gf_bitmatmul`, byte
+     for byte, on EC(8,3) encode of 64 blocks of 1 MiB (one call a
+     block), EC(16,4) encode and a reconstruct with 3 erasures; then
+     `EcCodec(8, 3)` on the card with impl="host" and impl="auto" on 16
+     blocks of 1 MiB: the same pieces, piece hashes and degraded
+     decodes, no launch from "host", K3 and K1 launched by "auto"; the
+     host codec's ms per block for `encode_batch_hashed` and
+     `decode_batch` beside the card's and K3's, on a JSON line of its own
+  12. one JSON line listing each kernel: launches in phase 5 (in phase 6
      for the fan-out; `launches_block_store` in phase 7, `launches_s3`
      in phase 8, `launches_daemons` in phase 9, K3's in phase 10 as
      `k3_launches_engines`; the fan-out's two are
@@ -798,10 +808,10 @@ def count_codec_calls(codec, methods) -> dict:
         row = tally[method] = {"calls": 0, "blocks": 0, "dispatches": 0, "k1_launches": 0}
         fn = getattr(codec, method)
 
-        def wrapped(items, _fn=fn, _row=row):
+        def wrapped(items, *impl, _fn=fn, _row=row):
             d0, k0 = registry.counters.get(key, 0.0), gf_bitmatmul_cuda.launches
             try:
-                return _fn(items)
+                return _fn(items, *impl)
             finally:
                 _row["calls"] += 1
                 _row["blocks"] += len(items)
@@ -913,7 +923,9 @@ async def drive_block_store(dev, root) -> dict:
                                        nodes[degraded_reader].manager.rpc_get_block)
         bad = [i for i in range(N_BLOCKS) if got[i] != blocks[i]]
         require(not bad, f"degraded GET: blocks {bad[:8]} differ from what was PUT")
-        decoded = res["degraded_get"]["dispatches"].get("ec_reconstruct", {})
+        # the card's decode kernel; a CPU rehearsal's codec decodes on the host
+        decode_kernel = "ec_reconstruct" if dev.type == "cuda" else "ec_decode_host"
+        decoded = res["degraded_get"]["dispatches"].get(decode_kernel, {})
         require(decoded.get("dispatches", 0) > 0, "degraded GET: no decode dispatch ran")
         if dev.type == "cuda":
             require(res["degraded_get"]["k1_launches"] > 0, "degraded GET never launched K1")
@@ -1064,9 +1076,9 @@ def record_batches(nodes, part: list[str]) -> dict:
     for x in nodes:
         batcher = x.garage.block_manager.batcher
         for lane in (batcher._encode, batcher._decode):
-            def wrapped(items, _fn=lane.dispatch_fn, _name=lane.name):
+            def wrapped(items, impl, _fn=lane.dispatch_fn, _name=lane.name):
                 sizes.setdefault(part[0], {}).setdefault(_name, []).append(len(items))
-                return _fn(items)
+                return _fn(items, impl)
 
             lane.dispatch_fn = wrapped
     return sizes
@@ -1861,7 +1873,7 @@ async def drive_daemons(dev, root: Path, phase8: dict) -> dict:
             await fleet.scrape(sess)
             totals = fleet.totals()
             platforms = {k[2] for k, v in totals.items() if k[0] == "dispatch" and v}
-            want = "cpu" if cpu else "cuda"
+            want = "host" if cpu else "cuda"  # a CPU node codes with the native host codec
             require(platforms == {want},
                     f"the daemons' codec dispatches ran on {sorted(platforms)}, not {want} only")
             res["launches"] = Fleet.launches(totals)
@@ -2152,6 +2164,98 @@ def run_engines(dev, root: Path, fleet: dict) -> dict:
     return res
 
 
+# --- phase 11: the host codec -----------------------------------------------------
+
+HOST_REPS = 3  # timed passes over the codec's blocks per backend
+HOST_CODEC_BLOCKS = 16
+HOST_LOST = (0, 3, 9)  # two data ranks and one parity: a real decode
+
+
+def host_ms(fn, blocks: int) -> float:
+    """Wall milliseconds per block of `fn()` over HOST_REPS calls, after
+    one warm-up call (each call ends with its device->host copy)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(HOST_REPS):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / (HOST_REPS * blocks)
+
+
+def run_host_codec(dev, gen, card: str, k3_ms: float) -> dict:
+    """Phase 11: the native host codec (`_native/gf8.cpp`, what a CPU
+    codec or `[block] batch_impl = "host"` runs) held byte for byte
+    against K1 on the card and against its plain version: EC(8,3) encode
+    of 64 blocks of 1 MiB, one 2-D call a block; EC(16,4) encode; a
+    reconstruct with 3 erasures.  Then `EcCodec(8, 3)` on the card with
+    impl="host" and impl="auto" on 16 blocks of 1 MiB: the same pieces,
+    piece hashes and decodes, the host calls launching no kernel and the
+    "auto" ones launching K3 and K1.  The host codec's ms per block
+    beside the card's."""
+    t0 = time.perf_counter()
+    keep3 = [i for i in range(K + M) if i not in (0, 3, 6)]
+    cases = (  # (name, B, S, GF(2^8) matrix)
+        ("ec83_encode", 64, BLOCK // K, gf.cauchy_parity_matrix(K, M)),
+        ("ec164_encode", 16, BLOCK // 16, gf.cauchy_parity_matrix(16, 4)),
+        ("ec83_lose3", 16, BLOCK // K, gf.reconstruction_matrix(K, M, keep3, [0, 3, 6])),
+    )
+    out = {"mismatches": 0}
+    for name, b, s, mat in cases:
+        q = mat.shape[1]
+        x = rand_u8((b, q, s), gen, dev)
+        bm = torch.from_numpy(gf.bitmatrix_of(mat)).to(dev)
+        on_card = gf_bitmatmul_cuda(bm, x).cpu().numpy()
+        plain = gf_bitmatmul(bm, x).cpu().numpy()
+        xs = x.cpu().numpy()
+        t = time.perf_counter()
+        host = np.stack([_native.gf8_apply(mat, xs[i]) for i in range(b)])
+        ms = (time.perf_counter() - t) * 1e3 / b
+        mism = int((host != on_card).sum()) + int((host != plain).sum())
+        out["mismatches"] += mism
+        out[name] = {"gf8_apply_ms_per_block": ms}
+        print(f"host codec {name}: B={b} q={q} r={mat.shape[0]} S={s} gf8_apply vs K1 and "
+              f"gf_bitmatmul: mismatches={mism}; gf8_apply_ms_per_block={ms:.6f} on {card}")
+        require(mism == 0, f"host codec {name}: {mism} bytes differ from K1 or its plain version")
+
+    rng = np.random.default_rng(SEED + 11)
+    blocks = [rng.integers(0, 256, BLOCK, dtype=np.uint8).tobytes()
+              for _ in range(HOST_CODEC_BLOCKS)]
+    codec = EcCodec(K, M, device=dev)
+    wrappers = (gf_bitmatmul_cuda, blake3_batch, encode_hash_tensor)
+    launched = [w.launches for w in wrappers]
+    host = codec.encode_batch_hashed(blocks, "host")
+    items = [({i: p for i, p in enumerate(pieces) if i not in HOST_LOST}, BLOCK)
+             for pieces, _h in host]
+    host_plain = codec.decode_batch(items, "host")
+    require([w.launches for w in wrappers] == launched,
+            "host codec: impl=\"host\" launched a kernel")
+    auto = codec.encode_batch_hashed(blocks, "auto")
+    auto_plain = codec.decode_batch(items, "auto")
+    require(encode_hash_tensor.launches > launched[2] and gf_bitmatmul_cuda.launches > launched[0],
+            "host codec: impl=\"auto\" on the card launched no K3 or no K1")
+    same = sum(h == a for h, a in zip(host, auto))
+    require(all(h is not None for _p, h in host), "host codec: a block without piece hashes")
+    require(same == HOST_CODEC_BLOCKS,
+            f"host codec: {HOST_CODEC_BLOCKS - same} blocks' pieces or hashes differ from the card's")
+    require(host_plain == auto_plain == blocks, "host codec: a degraded decode differs")
+    figures = {
+        "encode_batch_hashed_ms_per_block": {
+            "host": host_ms(lambda: codec.encode_batch_hashed(blocks, "host"), len(blocks)),
+            "card": host_ms(lambda: codec.encode_batch_hashed(blocks, "auto"), len(blocks)),
+            "k3_kernel": k3_ms / 64,
+        },
+        "decode_batch_ms_per_block": {
+            "host": host_ms(lambda: codec.decode_batch(items, "host"), len(items)),
+            "card": host_ms(lambda: codec.decode_batch(items, "auto"), len(items)),
+        },
+    }
+    out.update(figures)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"host codec: EcCodec({K},{M}) on {dev}, {HOST_CODEC_BLOCKS} blocks x {BLOCK} B, "
+          f"impl=host equals impl=auto (pieces, hashes, decodes losing {list(HOST_LOST)}); "
+          f"{json.dumps(figures)}; phase wall_s={out['wall_s']:.6f} on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs "
@@ -2183,7 +2287,8 @@ def main() -> int:
     print(f"ptxas K2 stack frames (bytes): {json.dumps(stack_frames)}")
     t0 = time.perf_counter()
     lib = _native.build()
-    print(f"build: host library (BLAKE3, kvlog) {lib.name} wall_s={time.perf_counter() - t0:.3f}")
+    print(f"build: host library (GF(2^8) codec, BLAKE3, kvlog) {lib.name} "
+          f"wall_s={time.perf_counter() - t0:.3f}")
     ops = sass_int_ops(_build._target("blake3"), "blake3_small_kernel")
     print(f"sass blake3_small_kernel (one compression in its loop): "
           f"{ops if ops is None else json.dumps(ops)} "
@@ -2270,6 +2375,8 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    host_codec = run_host_codec(dev, gen, card, composites["K3"]["ms"])
+
     main_k1 = k1["ec83_encode"]
     main_k2 = k2[(64 * (K + M), 131072)]
     kernels = [
@@ -2322,6 +2429,8 @@ def main() -> int:
             "library_ms": None,
         },
     ]
+    print(json.dumps({"host_codec": {"source": "garage_tpu_torch/_native/gf8.cpp",
+                                     "tpu_kernel": False, "card": card, **host_codec}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

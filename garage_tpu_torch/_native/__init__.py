@@ -1,18 +1,21 @@
-"""Host code in C++: BLAKE3 and the native metadata engine.
+"""Host code in C++: the GF(2^8) codec, BLAKE3 and the native metadata engine.
 
-The block store hashes single pieces on the host: every GET verifies
-each piece it reads against the hash in the piece's header, and the
-scrub hashes the piece lengths the batched device hasher does not take.
-`db_engine = "native"` keeps the metadata in `kvlog.cpp`'s ordered maps
-behind a write-ahead log.  This directory holds copies of the
-reference's `blake3.cpp`, `kvlog.cpp`, `kvpy.cpp` and `parallel.h`, and
-nothing else of its native code.
+A codec that runs on the host (a CPU `EcCodec`, or `[block] batch_impl
+= "host"`) codes with `gf8.cpp`'s split-nibble SIMD tables and hashes
+its pieces with `blake3.cpp`.  The block store hashes single pieces on
+the host too: every GET verifies each piece it reads against the hash
+in the piece's header, and the scrub hashes the piece lengths the
+batched device hasher does not take.  `db_engine = "native"` keeps the
+metadata in `kvlog.cpp`'s ordered maps behind a write-ahead log.  This
+directory holds copies of the reference's `gf8.cpp`, `blake3.cpp`,
+`kvlog.cpp`, `kvpy.cpp` and `parallel.h`.
 
 g++ builds two targets at first use into `build/native/` at the
 repository root (gitignored), as ops/_build.py does for the CUDA
 kernels:
 
-  libgarage_native-<digest>.so  blake3.cpp + kvlog.cpp, loaded with ctypes
+  libgarage_native-<digest>.so  gf8.cpp + blake3.cpp + kvlog.cpp, loaded
+                                with ctypes
   garage_kv-<digest>.so         kvpy.cpp + kvlog.cpp, a CPython extension
                                 (the native engine's binding: ~100 ns a
                                 call against ctypes' ~3 us)
@@ -27,8 +30,8 @@ interpreter has no `Python.h` to build the extension against
 (`kv_binding()` says which).
 
 A failed build raises `NativeBuildError`.  There is no pure-Python
-path: the block store and the native engine never run at the oracle's
-speed without saying so.
+path: the host codec, the block store and the native engine never run
+at the oracle's speed without saying so.
 """
 
 from __future__ import annotations
@@ -48,12 +51,12 @@ import numpy as np
 
 __all__ = [
     "NativeBuildError", "available", "build", "build_kv", "blake3", "blake3_batch",
-    "kv_binding", "kv_module", "lib",
+    "gf8_apply", "kv_binding", "kv_module", "lib",
 ]
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-SOURCES = ["blake3.cpp", "kvlog.cpp", "parallel.h"]  # the ctypes library
+SOURCES = ["gf8.cpp", "blake3.cpp", "kvlog.cpp", "parallel.h"]  # the ctypes library
 KV_SOURCES = ["kvpy.cpp", "kvlog.cpp"]  # the extension module
 FLAGS = ["-O3", "-pthread", "-shared", "-fPIC", "-std=c++17"]
 
@@ -137,6 +140,8 @@ def build_kv() -> Path | None:
 
 def _declare(l: ctypes.CDLL) -> ctypes.CDLL:
     c = ctypes
+    l.gf8_apply.argtypes = [c.c_char_p, c.c_int, c.c_int, c.c_char_p, c.c_char_p, c.c_size_t]
+    l.gf8_apply.restype = None
     l.blake3_hash.argtypes = [c.c_char_p, c.c_size_t, c.c_char_p]
     l.blake3_hash.restype = None
     l.blake3_batch.argtypes = [c.c_char_p, c.c_size_t, c.c_size_t, c.c_char_p]
@@ -203,6 +208,22 @@ def kv_module():
 def kv_binding() -> str:
     """Which binding the native engine takes here: "extension" or "ctypes"."""
     return "extension" if kv_module() is not None else "ctypes"
+
+
+def gf8_apply(mat: np.ndarray, shards: np.ndarray) -> np.ndarray:
+    """out (r, s) = mat (r, q) @ shards (q, s) over GF(2^8), uint8."""
+    if mat.ndim != 2 or shards.ndim != 2 or mat.shape[1] != shards.shape[0]:
+        raise ValueError(f"gf8_apply wants (r, q) @ (q, s), got {mat.shape} @ {shards.shape}")
+    r, q = mat.shape
+    s = shards.shape[1]
+    mat_c = np.ascontiguousarray(mat, dtype=np.uint8)
+    sh_c = np.ascontiguousarray(shards, dtype=np.uint8)
+    out = np.empty((r, s), dtype=np.uint8)
+    lib().gf8_apply(
+        mat_c.ctypes.data_as(ctypes.c_char_p), r, q,
+        sh_c.ctypes.data_as(ctypes.c_char_p), out.ctypes.data_as(ctypes.c_char_p), s,
+    )
+    return out
 
 
 def blake3(data: bytes) -> bytes:

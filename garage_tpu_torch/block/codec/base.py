@@ -38,15 +38,18 @@ class BlockCodec:
     def reconstruct_batch(
         self,
         batches: list[tuple[dict[int, bytes], list[int], int]],
+        impl: str = "auto",
     ) -> list[dict[int, bytes]]:
-        """[(pieces, want, block_len)] -> [reconstructed pieces]."""
+        """[(pieces, want, block_len)] -> [reconstructed pieces]; `impl`
+        is the backend policy of block/codec/ec.py (one path here)."""
         return [self.reconstruct_pieces(p, w, n) for p, w, n in batches]
 
     def decode_batch(
-        self, items: list[tuple[dict[int, bytes], int]]
+        self, items: list[tuple[dict[int, bytes], int]], impl: str = "auto"
     ) -> list[bytes]:
         """[(pieces, block_len)] -> [plaintext blocks] — the codec
-        batcher's decode-lane backend (block/codec_batch.py)."""
+        batcher's decode-lane backend (block/codec_batch.py); default
+        falls back to the scalar decode."""
         return [self.decode(p, n) for p, n in items]
 
     def piece_len(self, block_len: int) -> int:

@@ -80,8 +80,8 @@ class _Entry:
 
 class _Lane:
     """One coalescing queue (encode or decode) reading the batcher's
-    live knobs on every flush.  `dispatch_fn(payloads)` is the SYNC
-    codec entry point, run via asyncio.to_thread; `phase` is the
+    live knobs on every flush.  `dispatch_fn(payloads, impl)` is the
+    SYNC codec entry point, run via asyncio.to_thread; `phase` is the
     latency phase the post-wait dispatch time lands in."""
 
     def __init__(self, batcher: "CodecBatcher", name: str, phase: str,
@@ -215,7 +215,7 @@ class _Lane:
             # the sync batch dispatch is handed to a worker thread — the
             # loop keeps serving other requests while the codec math runs
             results = await asyncio.to_thread(
-                self.dispatch_fn, [e.payload for e in batch]
+                self.dispatch_fn, [e.payload for e in batch], self.batcher.impl
             )
         except Exception as e:  # noqa: BLE001 — fails THIS batch's waiters
             for ent in batch:
@@ -268,12 +268,15 @@ class CodecBatcher:
         linger_msec: float = 2.0,
         max_blocks: int = 64,
         max_bytes: int = 64 * 1024 * 1024,
+        impl: str = "auto",
     ):
         self.codec = codec
         # live-tunable: read on every flush, shared by both lanes
         self.linger_msec = float(linger_msec)
         self.max_blocks = int(max_blocks)
         self.max_bytes = int(max_bytes)
+        # the codec's backend policy (`[block] batch_impl`; block/codec/ec.py)
+        self.impl = impl
         self._closed = False
         self._encode = _Lane(
             self, "encode", "encode", codec.encode_batch_hashed,
@@ -284,7 +287,7 @@ class CodecBatcher:
         # that call's batch
         self._decode = _Lane(
             self, "decode", "decode",
-            lambda items: self.codec.decode_batch(items),
+            lambda items, impl: self.codec.decode_batch(items, impl),
             size_metrics=False,
         )
 

@@ -246,7 +246,8 @@ class BlockManager:
                 linger_msec=self.block_config.batch_linger_msec,
                 max_blocks=self.block_config.batch_max_blocks,
                 max_bytes=self.block_config.batch_max_bytes,
-            )  # `[block] batch_impl` is parsed but not used: one path per device
+                impl=self.block_config.batch_impl,
+            )
         # hot-block read cache: per-NODE on purpose — a
         # process-wide singleton would let in-process test-cluster node A
         # "read" a block it never fetched
@@ -1375,9 +1376,12 @@ class BlockManager:
         to a block matching their content hash: one `decode_batch` (one
         device dispatch per erasure pattern), then the hashes.  A
         mismatch must be rejected — otherwise one corrupt surviving piece
-        would be laundered into freshly rebuilt pieces.  Blocking: run it
-        in a worker thread, never on the event loop."""
-        plain = self.codec.decode_batch([(dict(p), blen) for _h, p, blen in items])
+        would be laundered into freshly rebuilt pieces.  Like the grouped
+        rebuild, it takes `[block] batch_impl`, the batcher's backend
+        policy.  Blocking: run it in a worker thread, never on the event
+        loop."""
+        plain = self.codec.decode_batch([(dict(p), blen) for _h, p, blen in items],
+                                        self.block_config.batch_impl)
         return [blake2sum(d) == h for (h, _p, _b), d in zip(items, plain)]
 
     def ec_ranks_of(self, hash32: bytes) -> list[int]:
@@ -1484,6 +1488,7 @@ class BlockManager:
         recs = await asyncio.to_thread(
             self.codec.reconstruct_batch,
             [(pieces, [rank], blen) for _h, rank, pieces, blen in batch],
+            self.block_config.batch_impl,
         )
         n = 0
         for (h, rank, _p, blen), rec in zip(batch, recs):

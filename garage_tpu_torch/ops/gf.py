@@ -4,8 +4,9 @@ The erasure-coded replication mode (`replication_mode = "ec:k:m"`,
 BASELINE.json north star) splits each block into k data shards and m parity
 shards over GF(2^8) with the AES-friendly polynomial x^8+x^4+x^3+x^2+1
 (0x11d).  This module is the bit-exact oracle for the coding kernel in
-ec_cuda.py and builds every matrix that kernel consumes; it is a copy of
-garage_tpu/ops/gf.py without the native C host codec.
+ec_cuda.py, builds every matrix that kernel consumes, and fronts the
+native host codec (`apply_matrix`, _native/gf8.cpp); it is a copy of
+garage_tpu/ops/gf.py.
 
 Key construction for the device path: multiplication by a constant c in
 GF(2^8) is GF(2)-linear on the 8 bits of the operand, i.e. an 8x8 binary
@@ -173,6 +174,17 @@ def apply_matrix_ref(coding: np.ndarray, shards: np.ndarray) -> np.ndarray:
             if c != 0:
                 out[..., i, :] ^= GF_MUL_TABLE[c][col]
     return out
+
+
+def apply_matrix(coding: np.ndarray, shards: np.ndarray) -> np.ndarray:
+    """The host codec's coding apply: 2-D operands go to the native C++
+    codec (_native/gf8.cpp; a failed build raises), other ranks to the
+    numpy LUT reference.  Bit-identical to apply_matrix_ref."""
+    if shards.ndim == 2:
+        from .. import _native
+
+        return _native.gf8_apply(coding, shards)
+    return apply_matrix_ref(coding, shards)
 
 
 def encode_blocks_ref(data: np.ndarray, k: int, m: int) -> np.ndarray:

@@ -25,7 +25,9 @@ dashboard reads either package:
                                                  the multi-entry mesh
                                                  fan-out
 
-The platform label is the tensor's device type, "cuda" or "cpu".
+The platform label is the tensor's device type, "cuda" or "cpu", or
+"host" for the native host codec's dispatches (block/codec/ec.py), as
+in the reference.
 """
 
 from __future__ import annotations
@@ -180,8 +182,10 @@ class DispatchRecord:
         """Bracket the kernel launches.  `streams` are the side streams
         they run on besides the current one (None entries are skipped):
         each waits on the start event, and the current stream waits on
-        each before the end event, so the bracket spans their work."""
-        if is_host_platform(self.platform):
+        each before the end event, so the bracket spans their work.  Only
+        the "cuda" platform is timed by events; the CPU and the native
+        host codec ("host") by the host clock."""
+        if self.platform != "cuda":
             t0 = time.perf_counter()
             try:
                 yield

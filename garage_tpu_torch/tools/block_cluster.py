@@ -15,7 +15,9 @@ clusters here:
 Every node has the storage role in the layout, one zone per node unless
 `zones` says otherwise, and the replication factor is the codec's piece
 count (k + m for `EcCodec(k, m)`) unless `rf` says otherwise, so each
-node holds one rank of every block.
+node holds one rank of every block.  `block_config` (a `BlockConfig`,
+the `[block]` section) goes to every node's `BlockManager`; its
+`batch_impl` chooses the codec's backend for the batched calls.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from ..rpc.layout.types import NodeRole
 from ..rpc.replication_mode import ReplicationMode
 from ..rpc.rpc_helper import RpcHelper
 from ..rpc.system import System
-from ..utils.config import DataDir
+from ..utils.config import BlockConfig, DataDir
 from ..utils.persister import Persister
 
 NETKEY = b"B" * 32
@@ -75,7 +77,7 @@ async def listen(key: bytes) -> NetApp:
 async def start_node(
     root, index: int, app: NetApp, key: bytes, codec: BlockCodec,
     bootstrap: list[tuple[bytes, tuple[str, int]]], *, engine: str = "memory",
-    rf: int | None = None,
+    rf: int | None = None, block_config: BlockConfig | None = None,
 ) -> Node:
     """System + Db + BlockManager on a listening `app`; metadata in
     `root/meta<index>`, blocks in `root/data<index>`.  The replication
@@ -91,7 +93,7 @@ async def start_node(
     db = open_db(meta, engine=engine)
     mgr = BlockManager(
         system, RpcHelper(app.id, system.peering), db, [DataDir(data)], meta,
-        codec=codec,
+        codec=codec, block_config=block_config,
     )
     return Node(index, key, app, system, db, mgr, data)
 
@@ -99,6 +101,7 @@ async def start_node(
 async def make_cluster(
     root, n: int, codec_of: Callable[[int], BlockCodec], *, zones: list[str] | None = None,
     engine: str = "memory", rf: int | None = None, keys: list[bytes] | None = None,
+    block_config: BlockConfig | None = None,
 ) -> list[Node]:
     """`n` connected nodes sharing one applied layout; node i's codec is
     `codec_of(i)`, its private key `keys[i]` (any 32 bytes; random by
@@ -109,7 +112,7 @@ async def make_cluster(
     for i, app in enumerate(apps):
         peers = [(a.id, a.bind_addr) for a in apps if a is not app]
         nodes.append(await start_node(root, i, app, keys[i], codec_of(i), peers,
-                                      engine=engine, rf=rf))
+                                      engine=engine, rf=rf, block_config=block_config))
     await wait_until(
         lambda: all(len(x.system.peering.connected_peers()) == n - 1 for x in nodes),
         TIMEOUT_S, "full mesh")
@@ -137,6 +140,7 @@ async def stop_all(nodes: list[Node]) -> None:
 
 async def restart_node(
     root, old: Node, peers: list[Node], codec: BlockCodec, *, engine: str = "memory",
+    block_config: BlockConfig | None = None,
 ) -> Node:
     """Start node `old.index` again under its key (so its node id and
     layout roles are unchanged) on its metadata and data directories,
@@ -144,7 +148,7 @@ async def restart_node(
     app = await listen(old.key)
     node = await start_node(root, old.index, app, old.key, codec,
                             [(p.app.id, p.app.bind_addr) for p in peers],
-                            engine=engine)
+                            engine=engine, block_config=block_config)
     want = {p.app.id for p in peers}
     await wait_until(lambda: want <= set(node.system.peering.connected_peers()),
                      TIMEOUT_S, f"node {old.index} reconnected")

@@ -53,6 +53,7 @@ from garage_tpu_torch.ops.blake3_ref import blake3 as py_blake3
 from garage_tpu_torch.rpc.layout.types import NodeRole as TNodeRole
 from garage_tpu_torch.tools import block_cluster as bc
 from garage_tpu_torch.utils.background import WorkerState
+from garage_tpu_torch.utils.config import BlockConfig
 from garage_tpu_torch.utils.data import blake2sum
 from garage_tpu_torch.utils.error import Error
 from garage_tpu_torch.utils.metrics import registry
@@ -314,11 +315,13 @@ async def drive(planner, max_iters=500):
 def test_planner_end_to_end_mesh_engaged(tmp_path):
     """tests/test_repair_plan.py::test_planner_end_to_end_mesh_engaged on
     the port: a one-node piece wipe is repaired in a few coalesced rounds
-    whose reconstructions fan out over 8 CPU mesh entries."""
+    whose reconstructions fan out over 8 CPU mesh entries (EcCuda's
+    plain version, asked for with `batch_impl = "xla"`)."""
 
     async def main():
         nodes = await bc.make_cluster(
-            tmp_path, 3, lambda i: port_codec(n_devices=8), zones=EC3)
+            tmp_path, 3, lambda i: port_codec(n_devices=8), zones=EC3,
+            block_config=BlockConfig(batch_impl="xla"))
         try:
             blocks = await populate(nodes, 64)
             vm = nodes[1].manager

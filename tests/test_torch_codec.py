@@ -39,16 +39,23 @@ def _blocks(rng, sizes):
 # --- codec against the reference ------------------------------------------------
 
 
-@pytest.mark.parametrize("k,m", [(2, 1), (8, 3)])
-def test_encode_batch_hashed_matches_reference(k, m):
-    """Pieces and per-piece hashes identical to the JAX codec's device
-    path, ragged sizes included (mirrors tests/test_codec_batch.py:213)."""
+@pytest.mark.parametrize("k,m,impl", [
+    pytest.param(2, 1, "xla", id="2-1"),
+    pytest.param(8, 3, "xla", id="8-3"),
+    *[pytest.param(k, m, impl, id=f"{k}-{m}-{impl}")
+      for k, m in [(2, 1), (8, 3)] for impl in ("auto", "host")],
+])
+def test_encode_batch_hashed_matches_reference(k, m, impl):
+    """Pieces and per-piece hashes identical to the JAX codec's path of
+    the same `impl` ("xla": its device path; "auto" and "host" on a CPU
+    codec: its native host path), ragged sizes included (mirrors
+    tests/test_codec_batch.py:212-225)."""
     rng = np.random.default_rng(7)
     port = EcCodec(k, m, device="cpu")
     ref = JaxEcCodec(k, m, tpu_enable=True, platform="cpu")
     blocks = _blocks(rng, (64, 256, 1000, 4096, 256, 3 * 1024 * k))
-    out = port.encode_batch_hashed(blocks)
-    want = ref.encode_batch_hashed(blocks, "xla")
+    out = port.encode_batch_hashed(blocks, impl)
+    want = ref.encode_batch_hashed(blocks, impl)
     assert len(out) == len(blocks)
     for blk, (pieces, hashes), (rpieces, rhashes) in zip(blocks, out, want):
         assert pieces == rpieces == ref.encode(blk)
@@ -69,7 +76,7 @@ def test_decode_batch_matches_reference(lost):
     for blk in blocks:
         pieces = ref.encode(blk)
         items.append(({i: p for i, p in enumerate(pieces) if i not in lost}, len(blk)))
-    got = port.decode_batch(items)
+    got = port.decode_batch(items, "xla")
     assert got == ref.decode_batch(items, "xla") == blocks
     assert port.decode(*items[0]) == blocks[0]
 
@@ -85,7 +92,7 @@ def test_reconstruct_batch_matches_reference():
     for blk, want in zip(blocks, wants):
         pieces = port.encode(blk)
         batches.append(({i: p for i, p in enumerate(pieces) if i not in want}, want, len(blk)))
-    got = port.reconstruct_batch(batches)
+    got = port.reconstruct_batch(batches, "xla")
     assert got == ref.reconstruct_batch(batches)
     for (pieces, want, n), blk, rec in zip(batches, blocks, got):
         full = port.encode(blk)
@@ -112,7 +119,7 @@ def test_get_codec_and_counters():
     assert ec.piece_len(1000) == JaxEcCodec(4, 2, tpu_enable=False).piece_len(1000)
     lbl = (("op", "encode"), ("path", "cpu"))
     before = registry.counters.get(("block_codec_blocks_total", lbl), 0)
-    ec.encode_batch_hashed([b"a" * 100, b"b" * 100])
+    ec.encode_batch_hashed([b"a" * 100, b"b" * 100], "xla")
     assert registry.counters[("block_codec_blocks_total", lbl)] == before + 2
     sys_lbl = (("op", "decode"), ("path", "systematic"))
     before = registry.counters.get(("block_codec_blocks_total", sys_lbl), 0)
@@ -135,7 +142,7 @@ class StubCodec:
         self.fail_next = False
         self.delay = delay
 
-    def encode_batch_hashed(self, blocks):
+    def encode_batch_hashed(self, blocks, impl="auto"):
         if self.delay:
             time.sleep(self.delay)  # runs in the to_thread worker
         if self.fail_next:
@@ -282,7 +289,7 @@ def test_batcher_over_ec_codec_matches_reference():
     ref = JaxEcCodec(k, m, tpu_enable=True, platform="cpu")
 
     async def main():
-        b = CodecBatcher(EcCodec(k, m, device="cpu"), linger_msec=20.0)
+        b = CodecBatcher(EcCodec(k, m, device="cpu"), linger_msec=20.0, impl="xla")
         try:
             d0 = registry.counter_family_sum("block_codec_batch_dispatch_total")
             puts = await asyncio.gather(*[b.encode(x) for x in blocks])

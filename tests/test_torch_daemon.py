@@ -9,8 +9,9 @@ only (`node id`, `node connect`, `layout assign`, `layout apply`, `key
 new`, `bucket create`, `bucket allow`, `bucket website --allow`).
 Checked: a multi-block S3 PUT through daemon 0 read back through daemon
 2, a K2V insert and read, a website GET through daemon 1, admin
-`/health` 200 on each daemon, codec dispatches on the CPU platform only,
-and exit code 0 on SIGTERM.  Two interop checks: the port's CLI reads a
+`/health` 200 on each daemon, codec dispatches on the native host codec
+only (platform "host", as on a reference node with `[tpu] enable =
+false`), and exit code 0 on SIGTERM.  Two interop checks: the port's CLI reads a
 reference daemon's `status`, and the reference CLI reads a port
 daemon's `status`.
 
@@ -104,7 +105,7 @@ def test_three_daemons_configured_by_the_cli(tmp_path):
         assert got["k2v"]
         assert got["web"] == (200, True)
         assert got["health"] == [200, 200, 200]
-        assert got["dispatch_platforms"] == {"cpu"}  # the codec ran, on the CPU only
+        assert got["dispatch_platforms"] == {"host"}  # the codec ran, on the host codec only
         assert got["launches"] == []  # no kernel launched: no card was asked for
         # interop: each package's CLI reads the other package's daemon
         port_on_ref = cli(ref.config, "status")

@@ -4,11 +4,15 @@ cluster (garage_tpu block manager, S3 API, RPC) driven by the port's
 `make_block_cluster` (tests/test_block.py) and, for the S3 cluster, put
 in place of `garage_tpu.model.garage.get_codec` with monkeypatch.
 
-`PortCodec` adapts one call shape: the reference's codec batcher passes
-an `impl` hint ("auto" / "host" / "xla") that the port's codec, which
-has one path per device, does not take."""
+The reference's codec batcher passes its `impl` ("auto" / "host" /
+"xla") to the port's codec, which takes it as the reference's does.
+These tests hold EcCuda's CPU path (the mesh fan-out, the `path="cpu"`
+counters), so they ask for "xla": the nodes' batchers are set to it,
+and `xla_codec` binds it to `reconstruct_batch`, which the reference's
+repair plane calls without one."""
 
 import asyncio
+import functools
 import os
 
 import pytest
@@ -38,14 +42,11 @@ _limit = time_limit(180)
 N = 8
 
 
-class PortCodec(EcCodec):
-    """The port's EcCodec with the reference batcher's call shape."""
-
-    def encode_batch_hashed(self, blocks, impl="auto"):
-        return super().encode_batch_hashed(blocks)
-
-    def decode_batch(self, items, impl="auto"):
-        return super().decode_batch(items)
+def xla_codec(*args, **kw) -> EcCodec:
+    """A CPU `EcCodec` whose `reconstruct_batch` asks for EcCuda's path."""
+    codec = EcCodec(*args, device="cpu", **kw)
+    codec.reconstruct_batch = functools.partial(codec.reconstruct_batch, impl="xla")
+    return codec
 
 
 def run(coro):
@@ -75,10 +76,10 @@ def test_bulk_reconstruct_through_port_mesh(tmp_path, port_mesh_calls):
     tests/test_mesh_repair.py::test_bulk_reconstruct_through_mesh)."""
 
     async def main():
-        codec = PortCodec(2, 1, device="cpu", n_devices=N)
+        codec = xla_codec(2, 1, n_devices=N)
         apps, systems, managers = await make_block_cluster(tmp_path, codec=codec)
         for mgr in managers:
-            mgr.codec = PortCodec(2, 1, device="cpu", n_devices=N)
+            mgr.codec = xla_codec(2, 1, n_devices=N)
         try:
             blocks = {}
             for _ in range(40):  # one size -> one rectangular mesh dispatch
@@ -119,7 +120,7 @@ def test_ec_s3_cluster_on_port_codec(tmp_path, monkeypatch):
     def port_get_codec(ec_params=None, **_kw):
         if ec_params is None:
             return ReplicaCodec()
-        made.append(PortCodec(*ec_params, device="cpu"))
+        made.append(xla_codec(*ec_params))
         return made[-1]
 
     monkeypatch.setattr(jax_garage, "get_codec", port_get_codec)
@@ -127,6 +128,8 @@ def test_ec_s3_cluster_on_port_codec(tmp_path, monkeypatch):
     async def main():
         garages = await make_ec_cluster(tmp_path)
         assert len(made) == 3 and all(g.block_manager.codec is c for g, c in zip(garages, made))
+        for g in garages:
+            g.block_manager.batcher.impl = "xla"
         s3_0, s3_2 = S3ApiServer(garages[0]), S3ApiServer(garages[2])
         await s3_0.start("127.0.0.1", 0)
         await s3_2.start("127.0.0.1", 0)

@@ -76,21 +76,22 @@ def test_reconstruct_mesh_matches_reference(mesh_calls):
 
 def test_codec_batch_apis_route_through_mesh(mesh_calls):
     """`encode_batch`, `decode_batch` and `reconstruct_batch` fan out at
-    2n+1 blocks and agree with the reference codec's mesh path."""
+    2n+1 blocks and agree with the reference codec's mesh path (on a CPU
+    codec, EcCuda serves the calls that ask for "xla")."""
     rng = np.random.default_rng(2)
     blocks = [bytes(rng.integers(0, 256, 4096, dtype=np.uint8)) for _ in range(2 * N + 1)]
     ref = JaxEcCodec(4, 2)
     port = EcCodec(4, 2, device="cpu", n_devices=N)
-    enc = port.encode_batch(blocks)
+    enc = port.encode_batch(blocks, "xla")
     assert enc == ref.encode_batch(blocks)
     assert mesh_calls["jax"] and mesh_calls["port"]
     items = [({i: p for i, p in enumerate(pieces) if i not in (0, 3)}, len(b))
              for b, pieces in zip(blocks, enc)]
     n_port = len(mesh_calls["port"])
-    assert port.decode_batch(items) == blocks
+    assert port.decode_batch(items, "xla") == blocks
     assert len(mesh_calls["port"]) == n_port + 1
     batches = [(have, [0, 3], n) for have, n in items]
-    recs = port.reconstruct_batch(batches)
+    recs = port.reconstruct_batch(batches, "xla")
     assert recs == ref.reconstruct_batch(batches)
     assert recs == [{0: pieces[0], 3: pieces[3]} for pieces in enc]
     assert len(mesh_calls["port"]) == n_port + 2

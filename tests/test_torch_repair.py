@@ -11,7 +11,9 @@ the block hash can catch it.
   - `bulk_reconstruct` verifies every gathered block with one
     `decode_batch` (one decode dispatch per erasure pattern, counted in
     ops/telemetry.py's dispatch records) in a worker thread, skips the
-    corrupt block, queues it for resync and writes no piece for it;
+    corrupt block, queues it for resync and writes no piece for it.  The
+    cluster asks for EcCuda's path with `[block] batch_impl = "xla"`,
+    whose dispatches are counted per erasure pattern;
   - `reconstruct_local_piece` (the resync path) rejects the same block:
     the resync step fails, records the error and writes nothing.
 
@@ -34,6 +36,7 @@ from garage_tpu_torch.block import manager as t_manager
 from garage_tpu_torch.block.codec.ec import EcCodec
 from garage_tpu_torch.tools import block_cluster as bc
 from garage_tpu_torch.utils.data import blake2sum
+from garage_tpu_torch.utils.config import BlockConfig
 from garage_tpu_torch.utils.error import Error
 from garage_tpu_torch.utils.metrics import registry
 
@@ -60,7 +63,7 @@ async def cluster_losing_rank0(tmp_path):
     rank order, so one node holds rank 0 (a data rank) of every block:
     it loses those pieces.  Returns (nodes, that node, {hash: data})."""
     nodes = await bc.make_cluster(tmp_path, 3, lambda _i: EcCodec(2, 1, device="cpu"),
-                                  zones=["dc1"] * 3)
+                                  zones=["dc1"] * 3, block_config=BlockConfig(batch_impl="xla"))
     rng = random.Random(7)
     blocks = {}
     for _ in range(N_BLOCKS):
@@ -106,8 +109,8 @@ def test_bulk_reconstruct_verifies_in_one_dispatch_and_rejects_corrupt(tmp_path,
             queued, decodes = [], []
             monkeypatch.setattr(vm.resync, "queue_block", lambda h, *a, **k: queued.append(h))
             decode_batch = vm.codec.decode_batch
-            monkeypatch.setattr(vm.codec, "decode_batch",
-                                lambda items: decodes.append(len(items)) or decode_batch(items))
+            monkeypatch.setattr(vm.codec, "decode_batch", lambda items, impl: decodes.append(
+                len(items)) or decode_batch(items, impl))
             threads = []
             verify = vm._verify_gathered
             monkeypatch.setattr(vm, "_verify_gathered", lambda items: threads.append(
