@@ -61,7 +61,8 @@ of its own, on each metadata engine:
      K1 launches), a `ScrubWorker` pass that finds exactly 3 flipped
      bytes through K2, and resync; each part's wall time, K1/K2
      launches and dispatch breakdown; then a cProfile of 64 more PUTs
-     and GETs
+     and GETs.  A `links:` line tallies the links that closed between
+     two running nodes (0 required until the first node is stopped)
   8. the S3 cluster, with the launch counters set to 0 just before it:
      11 nodes of this package in one process (tools/s3_cluster.py), each
      a whole `Garage` (tables, model, block store) with sqlite metadata,
@@ -79,7 +80,8 @@ of its own, on each metadata engine:
      the plain versions on the card.  Each part's wall, K1/K2/K3
      launches, kernel seconds and dispatches; MiB/s; the codec batch
      sizes under S3 traffic; every response status (2xx but the one
-     404); a cProfile of 16 more 4 MiB PUTs and GETs
+     404); a cProfile of 16 more 4 MiB PUTs and GETs; its `links:`
+     line as in phase 7
   9. the daemons: 11 processes of `python -m garage_tpu_torch.cli
      server` (tools/daemons.py), each with its own CUDA context on card
      0 and its EcCodec there, EC(8,3), sqlite, metadata replicated 3
@@ -797,6 +799,57 @@ class Part:
         return False
 
 
+class LinkWatch:
+    """The links that close between two running nodes of phases 7 and 8.
+
+    Set up once the phase's mesh is full: each node's
+    `app.on_disconnected` is wrapped, the peering's own callback kept.
+    A node the phase stops on purpose leaves the watch (`stopping`)
+    before it stops and a restarted one joins it again (`watch`), so a
+    link counts only when both its ends still run.  Until the first stop
+    none may close (`require`): two nodes that dial each other at once
+    must keep one link (`net/netapp.py::_install_conn`)."""
+
+    def __init__(self, apps):
+        self.nodes = len(apps)
+        self.live: set[bytes] = set()
+        self.closed: list[str] = []  # "<node>-<peer>", id prefixes
+        self.before_first_stop: int | None = None
+        for app in apps:
+            self.watch(app)
+
+    def watch(self, app) -> None:
+        self.live.add(app.id)
+        inner = app.on_disconnected
+
+        def on_disconnected(peer: bytes) -> None:
+            if app.id in self.live and peer in self.live:
+                self.closed.append(f"{app.id.hex()[:8]}-{peer.hex()[:8]}")
+            if inner is not None:
+                inner(peer)
+
+        app.on_disconnected = on_disconnected
+
+    def stopping(self, app) -> None:
+        if self.before_first_stop is None:
+            self.before_first_stop = len(self.closed)
+            require(not self.closed, f"links closed between running nodes before the "
+                                     f"first stop: {self.closed[:8]}")
+        self.live.discard(app.id)
+
+    def end(self) -> dict:
+        """The tally, read before the phase stops its nodes."""
+        self.live.clear()
+        return {"nodes": self.nodes, "closed_between_live": len(self.closed),
+                "before_first_stop": self.before_first_stop, "closed": self.closed[:8]}
+
+
+def links_line(phase: int, links: dict, card: str) -> str:
+    return (f"links: phase {phase} nodes {links['nodes']} closed_between_live "
+            f"{links['closed_between_live']} before_first_stop {links['before_first_stop']} "
+            f"closed {json.dumps(links['closed'])} on {card}")
+
+
 def count_codec_calls(codec, methods) -> dict:
     """Wrap `methods` of one node's EcCodec to tally, per method, its
     calls, the blocks they carried, the `ec_reconstruct` dispatches they
@@ -871,6 +924,7 @@ async def drive_block_store(dev, root) -> dict:
     res: dict = {}
     keys = [rng.bytes(32) for _ in range(N_NODES)]  # node ids from the seed
     nodes = await make_cluster(root, N_NODES, lambda i: EcCodec(K, M, device=dev), keys=keys)
+    links = LinkWatch([x.app for x in nodes])
     down: set[int] = set()
     try:
         layout = nodes[0].system.layout_manager.history.current()
@@ -916,6 +970,7 @@ async def drive_block_store(dev, root) -> dict:
               f"all exact")
 
         for i in stopped:
+            links.stopping(nodes[i].app)
             await stop_node(nodes[i])
             down.add(i)
         with Part("degraded_get", res):
@@ -940,6 +995,7 @@ async def drive_block_store(dev, root) -> dict:
             if i == stopped[0]:
                 shutil.rmtree(nodes[i].data_dir)
             nodes[i] = await restart_node(root, nodes[i], up, EcCodec(K, M, device=dev))
+            links.watch(nodes[i].app)
             down.discard(i)
             up.append(nodes[i])
             reference(nodes[i].manager, hashes)
@@ -994,6 +1050,7 @@ async def drive_block_store(dev, root) -> dict:
               f"found and quarantined, resync restored the exact files")
         await profile_host(nodes, rng, by_rank[7])
     finally:
+        res["links"] = links.end()
         await stop_all([x for i, x in enumerate(nodes) if i not in down])
     return res
 
@@ -1162,6 +1219,7 @@ async def drive_s3(dev, root) -> dict:
     nodes = await make_s3_cluster(root, N_NODES, mode=f"ec:{K}:{M}", block_size=BLOCK,
                                   engine="sqlite", device=str(dev), s3_nodes=S3_ENDPOINTS,
                                   keys=keys, extra=S3_EXTRA)
+    links = LinkWatch([x.garage.netapp for x in nodes])
     part = [None]
     batches = record_batches(nodes, part)
     clients: list[CountingClient] = []
@@ -1289,6 +1347,7 @@ async def drive_s3(dev, root) -> dict:
         by_rank = [index_of[n] for n in order]
         victim_rank = next(r for r in range(K) if by_rank[r] >= S3_ENDPOINTS)
         victim = by_rank[victim_rank]
+        links.stopping(nodes[victim].garage.netapp)
         await stop_s3_node(nodes[victim])
         down.add(victim)
         part[0] = "degraded_get"
@@ -1347,6 +1406,7 @@ async def drive_s3(dev, root) -> dict:
         part[0] = "profile"
         await profile_s3(dev, clients, other, rng)
     finally:
+        res["links"] = links.end()
         for c in clients + other:
             await c.close()
         await stop_s3_cluster([x for i, x in enumerate(nodes) if i not in down])
@@ -2334,8 +2394,9 @@ def main() -> int:
     require(store_launches["blake3"] > 0, "the block store never launched K2")
     print(f"block store: {N_NODES} nodes EC({K},{M}), {N_BLOCKS} blocks x {BLOCK} B, "
           f"launches K1 {store_launches['gf']} K2 {store_launches['blake3']}; "
-          f"wall_s {json.dumps({k: round(v['wall_s'], 6) for k, v in store.items()})} "
+          f"wall_s {json.dumps({k: round(v['wall_s'], 6) for k, v in store.items() if k != 'links'})} "
           f"on {card}")
+    print(links_line(7, store["links"], card))
 
     gf_bitmatmul_cuda.launches = 0
     blake3_batch.launches = 0
@@ -2352,6 +2413,7 @@ def main() -> int:
           f"K2 {s3_launches['blake3']} K3 {s3_launches['k3']}; wall_s "
           f"{json.dumps({k: round(v['wall_s'], 6) for k, v in parts.items()})}; kernel_s "
           f"{json.dumps({k: round(v['kernel_s'], 6) for k, v in parts.items()})} on {card}")
+    print(links_line(8, s3["links"], card))
 
     root = Path(tempfile.mkdtemp(prefix="daemons-", dir=SCRATCH))
     try:

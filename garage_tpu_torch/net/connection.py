@@ -185,6 +185,10 @@ class Connection:
         self._tasks: list[asyncio.Task] = []
         self._closed = False
 
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
     def start(self) -> None:
         self._tasks.append(asyncio.create_task(self._send_loop()))
         self._tasks.append(asyncio.create_task(self._recv_loop()))

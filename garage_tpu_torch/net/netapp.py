@@ -17,6 +17,10 @@ from .message import PRIO_NORMAL, Req, Resp
 
 logger = logging.getLogger("garage.net")
 
+# how long the connection that lost a simultaneous-dial tie-break stays
+# open: longer than the peer takes to close the one it displaced
+TIE_GRACE_S = 2.0
+
 
 def _set_nodelay(writer: asyncio.StreamWriter) -> None:
     """Disable Nagle on RPC sockets: a request/response pattern with
@@ -102,6 +106,9 @@ class NetApp:
         # (Server.wait_closed blocks until all accepted transports close)
         self.all_conns: set[Connection] = set()
         self._connecting: dict[bytes, asyncio.Lock] = {}
+        # delayed closes of connections that lost a simultaneous-dial
+        # tie-break (`_install_conn`); cancelled by shutdown
+        self._tie_closers: set[asyncio.Task] = set()
         self.server: asyncio.AbstractServer | None = None
         self._closing = False  # set by shutdown(): late accepts are refused
         self.bind_addr: tuple[str, int] | None = None
@@ -189,12 +196,13 @@ class NetApp:
         conn = Connection(
             box, self._dispatch, on_close=self._on_conn_close, initiator=False
         )
-        self._install_conn(conn)
-        if self.on_connected:
+        if self._install_conn(conn) and self.on_connected:
             self.on_connected(box.peer_id, True)
 
     async def connect(self, addr: tuple[str, int], peer_id: bytes | None = None) -> bytes:
-        """Dial a peer; returns its node id.  Reuses an existing connection."""
+        """Dial a peer; returns its node id.  Reuses an existing connection.
+        Returns the id too when the peer dialed us at the same moment and
+        our dial lost the tie-break (`_install_conn`): the link is up."""
         if peer_id is not None and peer_id in self.conns:
             return peer_id
         lock = self._connecting.setdefault(peer_id or b"?" + repr(addr).encode(), asyncio.Lock())
@@ -217,33 +225,73 @@ class NetApp:
             conn = Connection(
                 box, self._dispatch, on_close=self._on_conn_close, initiator=True
             )
-            self._install_conn(conn)
-            if self.on_connected:
+            if self._install_conn(conn) and self.on_connected:
                 self.on_connected(box.peer_id, False)
             return box.peer_id
 
-    def _install_conn(self, conn: Connection) -> None:
+    def _install_conn(self, conn: Connection) -> bool:
+        """Make `conn` the connection to its peer, unless it loses the
+        tie-break below; returns whether it is now the one in `conns`.
+
+        Two nodes that dial each other at once each hold two connections
+        to the other, one they dialed and one they accepted.  Keeping the
+        newer one lets each side keep the socket the other closes, and
+        the link is gone until the peering redials.  So when the peer's
+        open connection and `conn` were dialed from opposite ends, both
+        sides keep the one dialed by the lower node id: each end decides
+        from the ids and `initiator` alone, with nothing on the wire.  The
+        other one is closed after `TIE_GRACE_S`: a call in flight on it
+        may finish, and if the peer closes the kept one first (a peer that
+        keeps the newer connection, as the reference does) the other takes
+        its place (`_on_conn_close`) and the link stays up.  A call in
+        flight on a connection the peer closes fails with
+        `ConnectionClosed`, as on any closed connection.  A reconnect from
+        the same end, or a new connection beside a closed one, still
+        displaces the old connection at once."""
+        from ..utils.aio import spawn_supervised
+
         old = self.conns.get(conn.peer_id)
-        self.conns[conn.peer_id] = conn
         self.all_conns.add(conn)
         conn.start()
-        if old is not None:
-            # displaced by a reconnect or simultaneous dial: close the old
-            # connection so its socket and tasks don't leak (supervised —
-            # a failed close would otherwise vanish with the task handle)
-            from ..utils.aio import spawn_supervised
+        if old is None or old.closed:
+            self.conns[conn.peer_id] = conn
+            return True
+        name = f"conn-close-{conn.peer_id.hex()[:8]}"
+        if old.initiator == conn.initiator:
+            # a reconnect: close the displaced connection so its socket
+            # and tasks don't leak (supervised — a failed close would
+            # otherwise vanish with the task handle)
+            self.conns[conn.peer_id] = conn
+            spawn_supervised(old.close(), name=name)
+            return True
+        # dialed from opposite ends: keep the lower node id's dial
+        keep_mine = self.id < conn.peer_id
+        kept, other = (conn, old) if conn.initiator == keep_mine else (old, conn)
+        self.conns[conn.peer_id] = kept
+        task = spawn_supervised(self._close_unless_kept(other), name=name)
+        self._tie_closers.add(task)
+        task.add_done_callback(self._tie_closers.discard)
+        return kept is conn
 
-            spawn_supervised(
-                old.close(), name=f"conn-close-{conn.peer_id.hex()[:8]}"
-            )
+    async def _close_unless_kept(self, conn: Connection) -> None:
+        await asyncio.sleep(TIE_GRACE_S)
+        if self.conns.get(conn.peer_id) is not conn:
+            await conn.close()
 
     def _on_conn_close(self, conn: Connection) -> None:
         self.all_conns.discard(conn)
-        cur = self.conns.get(conn.peer_id)
-        if cur is conn:
-            del self.conns[conn.peer_id]
-            if self.on_disconnected:
-                self.on_disconnected(conn.peer_id)
+        if self.conns.get(conn.peer_id) is not conn:
+            return
+        # the peer closed the connection we kept: one that lost a
+        # tie-break and is still open takes its place
+        spare = next((c for c in self.all_conns
+                      if c.peer_id == conn.peer_id and not c.closed), None)
+        if spare is not None:
+            self.conns[conn.peer_id] = spare
+            return
+        del self.conns[conn.peer_id]
+        if self.on_disconnected:
+            self.on_disconnected(conn.peer_id)
 
     def is_connected(self, peer_id: bytes) -> bool:
         return peer_id in self.conns
@@ -283,7 +331,10 @@ class NetApp:
         # has disconnected: stop accepting first, then close connections
         # until none is left — a peer's dial accepted while earlier ones
         # were closing would otherwise stay open and hold the wait forever
+        from ..utils.aio import reap
+
         self._closing = True
+        await reap(list(self._tie_closers), log=logger, what="tie-break close")
         if self.server:
             self.server.close()
         while self.all_conns:

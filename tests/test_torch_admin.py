@@ -46,16 +46,11 @@ globals().update(mirrored_tests(xray_mirror, "latency_xray"))
 
 
 def test_mirrors_hold_every_reference_scenario():
-    from torch_mirror import TESTS
+    from torch_mirror import assert_mirror_whole
 
-    for ref, mirror, left in (("test_overload.py", overload_mirror, ()),
-                              ("test_flight.py", flight_mirror, FLIGHT_LEFT_OUT),
-                              ("test_latency_xray.py", xray_mirror, XRAY_LEFT_OUT)):
-        src = (TESTS / ref).read_text()
-        want = {line.split("(")[0][4:] for line in src.splitlines()
-                if line.startswith("def test_")}
-        assert {k for k in vars(mirror) if k.startswith("test_")} == want - set(left), ref
-        assert "garage_tpu." not in mirror.mirror_source.replace("garage_tpu_torch.", "")
+    assert_mirror_whole("test_overload.py", overload_mirror, (), 19)
+    assert_mirror_whole("test_flight.py", flight_mirror, FLIGHT_LEFT_OUT, 6)
+    assert_mirror_whole("test_latency_xray.py", xray_mirror, XRAY_LEFT_OUT, 9)
 
 
 # --- the admin API's JSON from twin nodes -------------------------------------------

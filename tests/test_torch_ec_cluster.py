@@ -8,7 +8,7 @@ a reference node with `[tpu] enable = false`."""
 
 import torch
 
-from torch_mirror import TESTS, mirrored_tests, port_mirror, time_limit
+from torch_mirror import assert_mirror_whole, mirrored_tests, port_mirror, time_limit
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)
@@ -24,9 +24,4 @@ globals().update(mirrored_tests(ec_cluster_mirror, "ec_cluster"))
 
 
 def test_mirror_holds_every_reference_scenario():
-    src = (TESTS / "test_ec_cluster.py").read_text()
-    want = {line.split("(")[0][4:] for line in src.splitlines() if line.startswith("def test_")}
-    assert len(want) == 3
-    got = {k for k in vars(ec_cluster_mirror) if k.startswith("test_")}
-    assert got == want - set(EC_CLUSTER_LEFT_OUT)
-    assert "garage_tpu." not in ec_cluster_mirror.mirror_source.replace("garage_tpu_torch.", "")
+    assert_mirror_whole("test_ec_cluster.py", ec_cluster_mirror, EC_CLUSTER_LEFT_OUT, 3)

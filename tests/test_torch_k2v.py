@@ -39,12 +39,9 @@ globals().update(mirrored_tests(k2v_mirror, "k2v"))
 
 
 def test_mirror_holds_every_reference_scenario():
-    from torch_mirror import TESTS
+    from torch_mirror import assert_mirror_whole
 
-    src = (TESTS / "test_k2v.py").read_text()
-    want = {line.split("(")[0][4:] for line in src.splitlines() if line.startswith("def test_")}
-    assert {k for k in vars(k2v_mirror) if k.startswith("test_")} == want
-    assert "garage_tpu." not in k2v_mirror.mirror_source.replace("garage_tpu_torch.", "")
+    assert_mirror_whole("test_k2v.py", k2v_mirror, (), 14)
     assert "garage_tpu_torch.k2v_client.__main__" in k2v_mirror.mirror_source
 
 

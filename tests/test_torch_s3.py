@@ -27,14 +27,13 @@ Tolerance: zero for bytes, digests and ETags.
 import asyncio
 import random
 import re
-from pathlib import Path
 
 import torch
 
 import test_s3_api as ref_s3
 from garage_tpu.api.s3.client import S3Client as JS3Client
 from garage_tpu_torch.api.s3.client import S3Client
-from torch_mirror import mirrored_tests, port_mirror, time_limit
+from torch_mirror import assert_mirror_whole, mirrored_tests, port_mirror, time_limit
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)
@@ -44,7 +43,6 @@ torch.set_num_threads(1)
 # scenario can hold the suite past its clock
 _limit = time_limit(180)
 
-TESTS = Path(__file__).resolve().parent
 S3_LEFT_OUT = ()  # every scenario runs on the port, the admin API and website included
 s3_mirror = port_mirror("test_s3_api.py", S3_LEFT_OUT)
 globals().update(mirrored_tests(s3_mirror, "s3"))
@@ -97,18 +95,9 @@ def run(coro):
 def test_mirrors_hold_every_reference_scenario():
     """Each mirror carries every test of its reference file but the ones
     left out by name."""
-    for ref, mirror, left in (("test_s3_api.py", s3_mirror, S3_LEFT_OUT),
-                              ("test_sigv4_vectors.py", sigv4_mirror, ()),
-                              ("test_put_abort_race.py", abort_mirror, ())):
-        src = (TESTS / ref).read_text()
-        want = {line.split("(")[0][4:] for line in src.splitlines()
-                if line.startswith("def test_")}
-        have = {k for k in vars(mirror) if k.startswith("test_")}
-        assert have == want - set(left), ref
-        # and no name of the reference package, nor of a reference test
-        # module it takes helpers from, is left in its text
-        assert not re.search(r"\bgarage_tpu\b(?!_torch)", mirror.mirror_source), ref
-        assert not re.search(r"^\s*from test_", mirror.mirror_source, flags=re.M), ref
+    assert_mirror_whole("test_s3_api.py", s3_mirror, S3_LEFT_OUT, 31)
+    assert_mirror_whole("test_sigv4_vectors.py", sigv4_mirror, (), 14)
+    assert_mirror_whole("test_put_abort_race.py", abort_mirror, (), 2)
 
 
 # --- cross checks: each package's client against the other's server ---------------

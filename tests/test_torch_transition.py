@@ -9,7 +9,7 @@ the reference."""
 
 import torch
 
-from torch_mirror import TESTS, mirrored_tests, port_mirror, time_limit
+from torch_mirror import assert_mirror_whole, mirrored_tests, port_mirror, time_limit
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)
@@ -26,9 +26,4 @@ globals().update(mirrored_tests(transition_mirror, "transition"))
 
 
 def test_mirror_holds_every_reference_scenario():
-    src = (TESTS / "test_transition.py").read_text()
-    want = {line.split("(")[0][4:] for line in src.splitlines() if line.startswith("def test_")}
-    assert len(want) == 11
-    got = {k for k in vars(transition_mirror) if k.startswith("test_")}
-    assert got == want - set(TRANSITION_LEFT_OUT)
-    assert "garage_tpu." not in transition_mirror.mirror_source.replace("garage_tpu_torch.", "")
+    assert_mirror_whole("test_transition.py", transition_mirror, TRANSITION_LEFT_OUT, 11)

@@ -67,6 +67,20 @@ def mirrored_tests(mod: types.ModuleType, prefix: str) -> dict:
             for k, v in vars(mod).items() if k.startswith("test_") and callable(v)}
 
 
+def assert_mirror_whole(ref_file: str, mirror: types.ModuleType, left_out: tuple[str, ...],
+                        count: int) -> None:
+    """`mirror` carries every one of the `count` tests of `ref_file` but
+    the ones `left_out` names, and its text names no module of the
+    reference package and no reference test module."""
+    src = (TESTS / ref_file).read_text()
+    want = {line.split("(")[0][4:] for line in src.splitlines() if line.startswith("def test_")}
+    assert len(want) == count, f"{ref_file}: {len(want)} tests, not {count}"
+    assert set(left_out) <= want, f"{ref_file}: {set(left_out) - want} left out, not there"
+    assert {k for k in vars(mirror) if k.startswith("test_")} == want - set(left_out), ref_file
+    assert not re.search(r"\bgarage_tpu\b(?!_torch)", mirror.mirror_source), ref_file
+    assert not re.search(r"^\s*from test_", mirror.mirror_source, flags=re.M), ref_file
+
+
 def time_limit(seconds: float):
     """An autouse fixture for a test module: a test still running after
     `seconds` dumps every thread's stack and ends its process, so no test
