@@ -99,7 +99,18 @@ of its own, on each metadata engine:
      and `cluster durability` reports no missing pieces; 8 sampled
      blocks' piece files against the plain versions on the card; 3
      flipped piece bytes on one daemon found by `repair scrub start`
-     (exactly 3).  Each part's wall beside phase 8's, and the daemons'
+     (exactly 3); 8 objects of one block and a 12 KiB tail (whose
+     shards no batched hasher length fits: the plain `ec_encode`
+     dispatch) PUT and read back; then every daemon's `/metrics` and
+     daemon 0's `/metrics/cluster` through the reference's dashboard
+     lint (script/dashboard_lint.py: the strict exposition parse of each
+     scrape, and every family of the Grafana dashboard scraped or
+     catalogued in doc/monitoring.md), the card's codec families
+     required (`ec_encode` dispatches on platform "cuda", kernel times
+     for `ec_encode` and `ec_reconstruct`, `jax_backend_platform
+     {platform="cuda"} 1`, `ec_recon_matrix` cache misses, shape-class
+     compile events) and printed on an `observability:` line.  Each
+     part's wall beside phase 8's, and the daemons'
      K1/K2/K3 launches read from their `/metrics`
      (`cuda_kernel_launches_total`); every codec dispatch must be on
      the CUDA platform; boot time, CLI call times, card memory, loop
@@ -147,6 +158,7 @@ import asyncio
 import base64
 import cProfile
 import hashlib
+import importlib.util
 import json
 import os
 import pstats
@@ -178,8 +190,8 @@ from garage_tpu_torch.net.handshake import node_id_of
 from garage_tpu_torch.ops import _build, gf
 from garage_tpu_torch.ops.blake3_ref import blake3
 from garage_tpu_torch.ops.ec_cuda import (
-    EcCuda, coding_state_from_numpy, ec_apply_mesh, encode_hash_tensor, gf_bitmatmul,
-    gf_bitmatmul_cuda,
+    EcCuda, blake3_supported_len, coding_state_from_numpy, ec_apply_mesh, encode_hash_tensor,
+    gf_bitmatmul, gf_bitmatmul_cuda,
 )
 from garage_tpu_torch.ops.hash_cuda import (
     blake3_batch, blake3_batch_ref, blake3_pieces, blake3_pieces_ref,
@@ -850,6 +862,60 @@ def links_line(phase: int, links: dict, card: str) -> str:
             f"closed {json.dumps(links['closed'])} on {card}")
 
 
+class BreakerWatch:
+    """The circuit breakers that open in phase 8, and the failures that
+    opened each: a timeout (with the window it allowed) or a transport
+    error.  Each node's `PeerHealth.record_failure` and `_transition`
+    are wrapped on the instance.  A breaker that opens on a node the
+    phase stopped (`stopping`) is expected; one that opens on a running
+    peer means calls to a live node failed `open_after` times in a row."""
+
+    def __init__(self, nodes, part: list):
+        self.index = {x.garage.node_id: x.index for x in nodes}
+        self.part = part
+        self.stopped: set[bytes] = set()
+        self.opened: list[dict] = []
+        for x in nodes:
+            self.watch(x.garage.peer_health)
+
+    def watch(self, health) -> None:
+        recent: dict[bytes, list[str]] = {}
+        fail, transition = health.record_failure, health._transition
+
+        def record_failure(node, timed_out_after=None, probe=False):
+            kind = "transport" if timed_out_after is None else f"timeout {timed_out_after:.2f} s"
+            recent[node] = (recent.get(node, []) + [kind])[-health.open_after:]
+            fail(node, timed_out_after=timed_out_after, probe=probe)
+
+        def _transition(node, p, to):
+            if to == "open" and p.state != to:
+                self.opened.append({"part": self.part[0], "at": self.index.get(health.our_id),
+                                    "peer": self.index.get(node),
+                                    "running": node not in self.stopped,
+                                    "failures": recent.get(node, [])})
+            transition(node, p, to)
+
+        health.record_failure, health._transition = record_failure, _transition
+
+    def stopping(self, node_id: bytes) -> None:
+        self.stopped.add(node_id)
+
+    def end(self) -> dict:
+        running = [o for o in self.opened if o["running"]]
+        return {"opened_on_running": len(running),
+                "opened_on_stopped": len(self.opened) - len(running), "running": running[:4]}
+
+
+def floor_label() -> str:
+    return "the RPC timeout" if S3_TIMEOUT_FLOOR_S is None else f"{S3_TIMEOUT_FLOOR_S} s"
+
+
+def breakers_line(breakers: dict) -> str:
+    return (f"breakers: phase 8 timeout floor {floor_label()} opened on running peers "
+            f"{breakers['opened_on_running']} on stopped nodes {breakers['opened_on_stopped']} "
+            f"first {json.dumps(breakers['running'])}")
+
+
 def count_codec_calls(codec, methods) -> dict:
     """Wrap `methods` of one node's EcCodec to tally, per method, its
     calls, the blocks they carried, the `ec_reconstruct` dispatches they
@@ -1111,6 +1177,18 @@ S3_TIMEOUT_S = 600  # a stuck part fails the phase instead of the call
 # 503 SlowDown).  The limits are raised, not the ladder switched off.
 S3_EXTRA = {"admin": {"slo_latency_p99_target_msec": 60000.0},
             "overload": {"loop_lag_p99_msec": 60000.0}}
+# The same shared loop makes a call's response time the whole cluster's
+# backlog, not its peer's health: the 8 concurrent 4 MiB GETs put about
+# 32 MiB of piece traffic through it at once.  At the adaptive timeout's
+# 1 s floor, the 5 or more calls a burst sends each peer timed out
+# together, counted as 5 consecutive failures and opened the breakers of
+# running peers, and a degraded GET whose object rows lay on the stopped
+# node and two such peers failed with a 500 (on an H100 host, 1 of 4
+# runs of this phase; 0 of 4 at the floor below).  So each node's floor
+# is its configured RPC timeout; a stopped node still fails fast on its
+# closed connection.
+# `--phase8 N --floor S` runs the phase alone N times at floor S.
+S3_TIMEOUT_FLOOR_S: float | None = None  # None: each node's RPC timeout
 
 
 class CountingClient(S3Client):
@@ -1219,8 +1297,11 @@ async def drive_s3(dev, root) -> dict:
     nodes = await make_s3_cluster(root, N_NODES, mode=f"ec:{K}:{M}", block_size=BLOCK,
                                   engine="sqlite", device=str(dev), s3_nodes=S3_ENDPOINTS,
                                   keys=keys, extra=S3_EXTRA)
+    for x in nodes:
+        x.garage.peer_health.timeout_floor = S3_TIMEOUT_FLOOR_S or x.garage.helper_rpc.default_timeout
     links = LinkWatch([x.garage.netapp for x in nodes])
     part = [None]
+    breakers = BreakerWatch(nodes, part)
     batches = record_batches(nodes, part)
     clients: list[CountingClient] = []
     other: list[CountingClient] = []
@@ -1348,6 +1429,7 @@ async def drive_s3(dev, root) -> dict:
         victim_rank = next(r for r in range(K) if by_rank[r] >= S3_ENDPOINTS)
         victim = by_rank[victim_rank]
         links.stopping(nodes[victim].garage.netapp)
+        breakers.stopping(nodes[victim].garage.node_id)
         await stop_s3_node(nodes[victim])
         down.add(victim)
         part[0] = "degraded_get"
@@ -1407,6 +1489,8 @@ async def drive_s3(dev, root) -> dict:
         await profile_s3(dev, clients, other, rng)
     finally:
         res["links"] = links.end()
+        res["breakers"] = breakers.end()
+        print(breakers_line(res["breakers"]))
         for c in clients + other:
             await c.close()
         await stop_s3_cluster([x for i, x in enumerate(nodes) if i not in down])
@@ -1486,6 +1570,11 @@ REPAIR_S = 180
 LOG_DIR = os.environ.get("SMOKE_DAEMON_LOGS")  # where the daemons' logs go on a failure
 LAUNCH_FAMILY = "cuda_kernel_launches_total"
 WRAPPERS = {"k1": "gf_bitmatmul_cuda", "k2": "blake3_batch", "k3": "encode_hash_tensor"}
+# the observability part's objects: a whole block and a tail whose shards
+# (1536 bytes at EC(8,3)) are no length the batched hasher takes, so the
+# tail's encode is the plain `ec_encode` dispatch (K1 alone; receivers hash)
+N_ODD, ODD_TAIL = 8, 12 * 1024
+DASHBOARD_LINT = Path(__file__).resolve().parent / "script" / "dashboard_lint.py"
 
 
 class CountingK2V(K2VClient):
@@ -1656,6 +1745,91 @@ async def poll(what: str, cond, timeout: float, every: float = 0.5):
             return got
         require(time.monotonic() < deadline, f"{what}: not reached in {timeout} s")
         await asyncio.sleep(every)
+
+
+def dashboard_lint():
+    """The reference's dashboard lint (script/dashboard_lint.py: stdlib
+    only, the Grafana dashboard and doc/monitoring.md beside it), loaded
+    by path."""
+    spec = importlib.util.spec_from_file_location("dashboard_lint", DASHBOARD_LINT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def summed(texts, family: str, **want) -> float:
+    """A family's samples whose labels hold `want`, summed over expositions."""
+    return sum(v for t in texts for lbl, v in metric_samples(t, family)
+               if all(lbl.get(k) == x for k, x in want.items()))
+
+
+async def observe_daemons(sess, daemons: list[Daemon], fleet: Fleet, cpu: bool,
+                          card: str) -> dict:
+    """Every daemon's `/metrics` and daemon 0's `/metrics/cluster`: each
+    passes the reference's strict exposition parse, and the families of
+    the reference's Grafana dashboard are all in their union or in
+    doc/monitoring.md.  On the card, the codec families must show the
+    card: `ec_encode` dispatches on platform "cuda", kernel times for
+    `ec_encode` and `ec_reconstruct`, the platform gauge, reconstruction
+    matrices built (cache misses) and shape-class compile events."""
+    lint = dashboard_lint()
+    await fleet.scrape(sess)
+    require(sorted(fleet.last) == list(range(N_NODES)),
+            f"observability: scraped daemons {sorted(fleet.last)}")
+    d0 = daemons[0]
+    async with sess.get(d0.url(d0.admin_port) + "/metrics/cluster",
+                        headers={"Authorization": f"Bearer {METRICS_TOKEN}"}) as r:
+        require(r.status == 200, f"daemon 0 /metrics/cluster: {r.status}")
+        cluster_text = await r.text()
+    scrapes = {f"daemon {i} /metrics": t for i, t in sorted(fleet.last.items())}
+    scrapes["daemon 0 /metrics/cluster"] = cluster_text
+    families: set[str] = set()
+    for what, text in scrapes.items():
+        try:
+            lint.lint_exposition(text)
+        except AssertionError as e:
+            raise SmokeFailure(f"observability: {what} fails the exposition lint: {e}") from e
+        families |= lint.families_in_exposition(text)
+    dashboard = lint.families_in_dashboard()
+    errors = lint.lint(dashboard, lint.families_in_doc(), families)
+    require(not errors, f"observability: dashboard lint: {errors}")
+    texts = list(fleet.last.values())
+    build_caches = set(_build.BUILD_CACHES.values())  # the rest are shape classes' kernels
+    compile_events = sum(v for t in texts for lbl, v in
+                         metric_samples(t, "tpu_compile_duration_count")
+                         if lbl.get("cache") not in build_caches)
+    got = {
+        "scrapes": len(scrapes), "lint_errors": len(errors),
+        "families_scraped": len(families),
+        "dashboard_families": len(dashboard),
+        "dashboard_families_live": len(set(dashboard) & families),
+        "ec_encode_cuda_dispatches": summed(texts, "tpu_codec_dispatch_total",
+                                            kernel="ec_encode", platform="cuda"),
+        "compute_counts": {k: summed(texts, "tpu_codec_compute_duration_count", kernel=k)
+                           for k in ("ec_encode", "ec_encode_hash", "ec_reconstruct")},
+        "platform_gauge_cuda": summed(texts, "jax_backend_platform", platform="cuda"),
+        "recon_matrix_misses": summed(texts, "tpu_compile_cache_miss_total",
+                                      cache="ec_recon_matrix"),
+        "recon_matrix_hits": summed(texts, "tpu_compile_cache_hit_total",
+                                    cache="ec_recon_matrix"),
+        "shape_class_compile_events": compile_events,
+        "build_cache": {kind: sum(v for t in texts for lbl, v in
+                                  metric_samples(t, f"tpu_compile_cache_{kind}_total")
+                                  if lbl.get("cache") in build_caches)
+                        for kind in ("hit", "miss")},
+    }
+    if not cpu:
+        require(got["ec_encode_cuda_dispatches"] > 0,
+                "observability: no ec_encode dispatch on platform cuda")
+        for k in ("ec_encode", "ec_reconstruct"):
+            require(got["compute_counts"][k] > 0, f"observability: no compute time for {k}")
+        require(got["platform_gauge_cuda"] >= 1,
+                'observability: no jax_backend_platform{platform="cuda"} 1')
+        require(got["recon_matrix_misses"] >= 1,
+                'observability: no tpu_compile_cache_miss_total{cache="ec_recon_matrix"}')
+        require(compile_events >= 1, "observability: no shape-class compile event")
+    print(f"observability: {json.dumps(got)} on {card}")
+    return got
 
 
 async def drive_daemons(dev, root: Path, phase8: dict) -> dict:
@@ -1929,6 +2103,23 @@ async def drive_daemons(dev, root: Path, phase8: dict) -> dict:
             print(f"daemons scrub: daemon {scrubbed.index}, {SCRUB_FLIPS} flipped bytes, "
                   f"{found[0]} corruptions found, {res['scrub']['k2_launches_scrubbed']} K2 "
                   f"launches in that daemon")
+
+            # observability: objects whose tail takes the plain encode
+            # dispatch, then every daemon's scrape through the dashboard lint
+            tail_shard = EcCodec(K, M, device="cpu").piece_len(ODD_TAIL)
+            require(not blake3_supported_len(tail_shard),
+                    f"odd tail: {tail_shard}-byte shards are hashed on the card")
+            odd = {f"odd/{i:02d}": np.random.default_rng(SEED + 90 + i).bytes(BLOCK + ODD_TAIL)
+                   for i in range(N_ODD)}
+            async with part("odd_tail"):
+                await asyncio.gather(*[put_share(c, list(odd.items()))
+                                       for c in range(S3_CLIENTS)])
+                got = await asyncio.gather(*[get_share(c, sorted(odd), other)
+                                             for c in range(S3_CLIENTS)])
+            require(all(b == odd[k] for kb in got for k, b in kb) and sum(map(len, got)) == N_ODD,
+                    "odd-tail GETs differ from what was PUT")
+            res["observability"] = await observe_daemons(
+                sess, daemons, fleet, cpu, "cpu" if cpu else smi("name,power.limit"))
 
             await fleet.scrape(sess)
             totals = fleet.totals()
@@ -2408,7 +2599,7 @@ def main() -> int:
     require(s3_launches["k3"] > 0, "the S3 cluster never launched K3")
     require(s3_launches["gf"] > 0, "the S3 cluster never launched K1")
     require(s3_launches["blake3"] > 0, "the S3 cluster never launched K2")
-    parts = {k: v for k, v in s3.items() if "wall_s" in v}
+    parts = {k: v for k, v in s3.items() if isinstance(v, dict) and "wall_s" in v}
     print(f"s3: {N_NODES} nodes EC({K},{M}), launches K1 {s3_launches['gf']} "
           f"K2 {s3_launches['blake3']} K3 {s3_launches['k3']}; wall_s "
           f"{json.dumps({k: round(v['wall_s'], 6) for k, v in parts.items()})}; kernel_s "
@@ -2498,5 +2689,37 @@ def main() -> int:
     return 0
 
 
+def phase8_runs(n: int) -> int:
+    """Phase 8 alone, `n` times after the builds: how often it passes at
+    the timeout floor `S3_TIMEOUT_FLOOR_S`, and which breakers opened.
+    Exits 1 if a run failed."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test needs "
+              "a CUDA card", file=sys.stderr)
+        return 1
+    dev, card = torch.device("cuda", 0), smi("name,power.limit")
+    print(card)
+    _build.build_all()
+    _native.build()
+    SCRATCH.mkdir(exist_ok=True)
+    failed = 0
+    for i in range(n):
+        t0 = time.perf_counter()
+        try:
+            run_s3(dev)
+            what = "ok"
+        except Exception as e:  # noqa: BLE001 -- counted, and the exit code says so
+            what = f"failed: {type(e).__name__}: {str(e)[:400]}"
+            failed += 1
+        print(f"phase 8 run {i + 1} of {n}: {what} wall_s={time.perf_counter() - t0:.6f}")
+    print(f"phase 8: {n - failed} of {n} runs passed at timeout floor {floor_label()} on {card}")
+    return 1 if failed else 0
+
+
 if __name__ == "__main__":
+    if "--phase8" in sys.argv:
+        args = sys.argv[1:]
+        if "--floor" in args:
+            S3_TIMEOUT_FLOOR_S = float(args[args.index("--floor") + 1])
+        sys.exit(phase8_runs(int(args[args.index("--phase8") + 1])))
     sys.exit(main())

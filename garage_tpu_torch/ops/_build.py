@@ -9,7 +9,10 @@ with
          -Xcompiler -fPIC -Xptxas -v
 
 and is loaded with `ctypes`.  The digest covers the source and the
-flags, so an edited kernel is rebuilt and a built one is reused; the
+flags, so an edited kernel is rebuilt and a built one is reused (a miss
+or a hit of `tpu_compile_cache_{miss,hit}_total{cache}`, with the label
+`BUILD_CACHES` gives the source; a build's seconds are a compile event
+under that label); the
 compiler's output (ptxas registers and stack frames) is kept beside it
 as `<name>-<digest>.log` and read into `build_logs` either way.
 `build_all()` starts one nvcc per source, all together.  A failed build
@@ -101,6 +104,17 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
+# the `cache` label of each source's build events and build-cache lookups:
+# the reference's name for the jit cache of the same function, which is
+# no dispatch's kernel name and is in the label set the reference's
+# dashboard lint allows (`script/dashboard_lint.py`, `_COMPILE_CACHES`)
+BUILD_CACHES = {
+    "gf_bitplane": "ec_apply",
+    "blake3": "blake3_hasher",
+    "blake3_block_per_row": "blake3_hasher",
+}
+
+
 def source(name: str) -> Path:
     return SOURCES.get(name, CSRC / f"{name}.cu")
 
@@ -132,6 +146,7 @@ def build_all(names=None) -> dict[str, float]:
         t0 = time.perf_counter()
         for n in todo:
             out = _target(n)
+            telemetry.record_cache_event(BUILD_CACHES[n], out.exists())
             if out.exists():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -147,7 +162,7 @@ def build_all(names=None) -> dict[str, float]:
             out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
             secs[n] = time.perf_counter() - t0
-            telemetry.compile_event(n, secs[n])
+            telemetry.compile_event(BUILD_CACHES[n], secs[n])
         for n in todo:
             log = _target(n).with_suffix(".log")
             build_logs[n] = log.read_text() if log.exists() else ""

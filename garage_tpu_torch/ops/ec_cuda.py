@@ -257,6 +257,7 @@ class EcCuda:
                 telemetry.mesh_engaged(kernel, self.platform, n)
                 return out
             bucket = bucket_batch(b)
+            telemetry.record_cache_event("ec_dispatch_bucket", bucket == b)
             rec.pad(b, bucket)
             with rec.transfer():
                 xd = pad_to_bucket(_host_tensor(x).to(self.device), bucket)
@@ -306,6 +307,7 @@ class EcCuda:
         if not blake3_supported_len(s):
             return self.encode(data), None
         bucket = bucket_batch(b)
+        telemetry.record_cache_event("ec_batch_bucket", bucket == b)
         with telemetry.dispatch("ec_encode_hash", self.platform, b, data.nbytes) as rec:
             rec.pad(b, bucket)
             with rec.transfer():
@@ -325,6 +327,7 @@ class EcCuda:
         pattern; the pattern only changes the small matrix argument."""
         self._check(shards, "reconstruct", exact=False)
         key = (tuple(present[: self.k]), tuple(want))
+        telemetry.record_cache_event("ec_recon_matrix", key in self._recon_cache)
         if key not in self._recon_cache:
             rmat = gf.reconstruction_matrix(self.k, self.m, list(key[0]), list(want))
             self._recon_cache[key] = coding_state_from_numpy(rmat, self.device)["bitmat"]

@@ -1,14 +1,19 @@
 """`port_mirror`: a reference test file run on the port.
 
 The file's text, with every `garage_tpu` module name pointed at
-`garage_tpu_torch`, is loaded as a module of its own, and its nodes'
-configs ask for the CPU (`[tpu] enable = false`).  The reference test
-modules it takes helpers from are mirrored the same way.  Test files
-re-export a mirror's tests under `test_<prefix>_*` with `mirrored_tests`.
+`garage_tpu_torch` (and the modules the port renamed, `ops.ec_tpu` and
+`ops.hash_tpu`, at `ops.ec_cuda` and `ops.hash_cuda`), is loaded as a
+module of its own, and its nodes' configs ask for the CPU (`[tpu]
+enable = false`).  Its `EcCodec` is `ReferenceEcCodec`, which takes the
+reference's constructor.  The reference test modules it takes helpers
+from are mirrored the same way.  Test files re-export a mirror's tests
+under `test_<prefix>_*` with `mirrored_tests`.
 """
 
 import faulthandler
+import functools
 import importlib
+import os
 import re
 import sys
 import types
@@ -16,8 +21,86 @@ from pathlib import Path
 
 import pytest
 
+from garage_tpu_torch.block.codec.ec import EcCodec
+from garage_tpu_torch.ops.ec_cuda import EcCuda
+
 TESTS = Path(__file__).resolve().parent
 CPU = {"enable": False}  # the port's nodes run the kernels' plain versions
+
+# module names of the reference whose port counterpart has another name
+PORT_MODULES = {
+    "garage_tpu_torch.ops.ec_tpu": "garage_tpu_torch.ops.ec_cuda",
+    "garage_tpu_torch.ops.hash_tpu": "garage_tpu_torch.ops.hash_cuda",
+}
+# the codec import of a mirror, pointed at the bridge below
+CODEC_IMPORT = re.compile(r"\bfrom garage_tpu_torch\.block\.codec\.ec import EcCodec\b(?!\s*,)")
+BRIDGED_CODEC_IMPORT = "from torch_mirror import ReferenceEcCodec as EcCodec"
+
+# --- the codec bridge: the reference's constructor on the port ---------------------
+
+TPU_BATCH_MIN = 8  # the reference codec's smallest batch for its device path
+
+
+def reference_cpu_devices() -> int:
+    """How many devices the reference's CPU platform has: the virtual
+    devices tests/conftest.py asks XLA for, else one."""
+    found = re.search(r"--xla_force_host_platform_device_count=(\d+)",
+                      os.environ.get("XLA_FLAGS", ""))
+    return int(found.group(1)) if found else 1
+
+
+class ReferenceCpuEcCuda(EcCuda):
+    """`EcCuda` on the CPU whose automatic mesh width is the reference's
+    on the CPU platform (`EcTpu._mesh_width`: one entry per device)."""
+
+    def _mesh_width(self) -> int:
+        if os.environ.get("GARAGE_EC_MESH", "1") == "0":
+            return 1
+        if self._n_dev is not None:
+            return self._n_dev
+        return reference_cpu_devices()
+
+
+class ReferenceEcCodec(EcCodec):
+    """The reference's `EcCodec(k, m, tpu_enable=True, platform=None)` on
+    the port: a CPU codec routed the way the reference's routes on its
+    CPU platform (garage_tpu/block/codec/ec.py).
+
+      - `tpu_enable=False`: every call takes the native host codec, and
+        `_tpu` is None;
+      - `tpu_enable=True`: `_tpu` is the port's `EcCuda`; `encode_batch`
+        and `reconstruct_batch` take its plain path (impl "xla") for a
+        batch of at least `TPU_BATCH_MIN` blocks, the host codec below
+        that; `encode_batch_hashed` and `decode_batch` keep their `impl`
+        ("auto" is the host codec on the CPU, as the reference's
+        `_prefer_xla` decides there), and `decode_batch` under "xla"
+        takes the host codec below `TPU_BATCH_MIN` items, as the
+        reference's does."""
+
+    def __init__(self, k: int, m: int, tpu_enable: bool = True, platform=None):
+        if platform not in (None, "cpu"):
+            raise ValueError(f"the bridged codec runs on the CPU, not {platform!r}")
+        super().__init__(k, m, device="cpu")
+        self._ec = ReferenceCpuEcCuda(k, m, device="cpu")
+        self._tpu = self._ec if tpu_enable else None
+
+    def _batch_impl(self, n: int, impl: str) -> str:
+        self._on_host(impl)  # an unknown impl still raises
+        return "xla" if self._tpu is not None and n >= TPU_BATCH_MIN else "host"
+
+    def encode_batch(self, blocks, impl="auto"):
+        return super().encode_batch(blocks, self._batch_impl(len(blocks), impl))
+
+    def reconstruct_batch(self, batches, impl="auto"):
+        return super().reconstruct_batch(batches, self._batch_impl(len(batches), impl))
+
+    def encode_batch_hashed(self, blocks, impl="auto"):
+        return super().encode_batch_hashed(blocks, impl if self._tpu is not None else "host")
+
+    def decode_batch(self, items, impl="auto"):
+        if impl == "xla":
+            impl = self._batch_impl(len(items), impl)
+        return super().decode_batch(items, impl if self._tpu is not None else "host")
 
 
 def on_cpu(make_config):
@@ -32,19 +115,30 @@ def on_cpu(make_config):
 _loading: set[str] = set()
 
 
-def port_mirror(ref_file: str, leave_out: tuple[str, ...] = ()) -> types.ModuleType:
+def port_mirror(ref_file: str, leave_out: tuple[str, ...] = (),
+                drop: tuple[str, ...] = ()) -> types.ModuleType:
     """The reference test file `ref_file` with every `garage_tpu` module
     name pointed at `garage_tpu_torch`, loaded as a module of its own;
-    its nodes' configs ask for the CPU.  The reference test modules it
-    imports its helpers from are mirrored the same way.  `leave_out`
-    names tests that need modules the port does not have yet."""
+    its nodes' configs ask for the CPU and its `EcCodec` is the bridge.
+    The reference test modules it imports its helpers from are mirrored
+    the same way.  `leave_out` names tests that need modules the port
+    does not have; `drop` names lines of the reference's text (imports
+    only such tests use) that the mirror goes without."""
     name = "port_mirror_" + ref_file.removesuffix(".py")
     if name in sys.modules or name in _loading:
         return sys.modules.get(name)  # a helper that imports its importer lazily
     _loading.add(name)
     src = (TESTS / ref_file).read_text()
+    lines = src.splitlines(keepends=True)
+    for line in drop:
+        assert line + "\n" in lines, f"{ref_file}: no line {line!r} to drop"
+    src = "".join(x for x in lines if x.rstrip("\n") not in drop)
     src = src.replace("garage_tpu.", "garage_tpu_torch.").replace(
+        "garage_tpu/", "garage_tpu_torch/").replace(
         "from garage_tpu import", "from garage_tpu_torch import")
+    for ref_mod, port_mod in PORT_MODULES.items():
+        src = re.sub(rf"\b{re.escape(ref_mod)}\b", port_mod, src)
+    src = CODEC_IMPORT.sub(BRIDGED_CODEC_IMPORT, src)
     for helper in sorted(set(re.findall(r"^\s*from (test_\w+) import", src, flags=re.M))):
         port_mirror(helper + ".py")
         src = re.sub(rf"^(\s*)from {helper} import", rf"\1from port_mirror_{helper} import",
@@ -65,6 +159,24 @@ def mirrored_tests(mod: types.ModuleType, prefix: str) -> dict:
     """The tests of a mirror, renamed `test_<prefix>_<name>`."""
     return {f"test_{prefix}_{k.removeprefix('test_')}": v
             for k, v in vars(mod).items() if k.startswith("test_") and callable(v)}
+
+
+def refusing_skips(tests: dict) -> dict:
+    """`tests` with each skip turned into a failure that names its reason:
+    a mirrored test that skips on the port, for a reason the reference
+    does not skip for on the CPU, is not a run."""
+
+    def refusing(test):
+        @functools.wraps(test)
+        def run(*args, **kwargs):
+            try:
+                return test(*args, **kwargs)
+            except pytest.skip.Exception as e:
+                pytest.fail(f"{test.__name__} skipped on the port: {e}")
+
+        return run
+
+    return {name: refusing(test) for name, test in tests.items()}
 
 
 def assert_mirror_whole(ref_file: str, mirror: types.ModuleType, left_out: tuple[str, ...],
