@@ -34,14 +34,15 @@ of its own, on each metadata engine:
      bounds (K1's byte bound plus K2's operation bound), and K3's split:
      the copy design's allocation and copy, K1 through a strided view
      and K2 on the k+m buffer, beside K1 + K2 alone
-  5. the slice, with every launch counter set to 0 just before it:
+  5. the slice, its launches read as the change of every kernel's
+     `cuda_kernel_launches_total` from just before it to just after:
      256 concurrent 1 MiB PUTs through CodecBatcher(EcCodec) (pieces
      vs the numpy oracle, every piece hash vs the plain hasher on the
      card), degraded GETs in four erasure patterns, a repair batch, and
      a 256-block ScrubRepairPipeline batch vs the plain versions
   6. the mesh fan-out (K6) over an explicit 4-entry mesh: 4 cards where
      4 are visible, else 4 entries on card 0, one stream each.  With the
-     launch counters set to 0 just before it: EC(8,3) encode of 256 1 MiB
+     launches read in the same way: EC(8,3) encode of 256 1 MiB
      blocks through EcCodec.encode_batch; EC(16,4) encode and repair of
      259 1 MiB blocks that lose ranks {0, 5, 17, 19}; `sharded_apply` of
      EC(8,3) at 11 and 259 blocks; `dryrun_multichip(4)`.  Then each is
@@ -50,8 +51,8 @@ of its own, on each metadata engine:
      runs are timed in turns, and the fan-out of K1 at the 256-block
      encode is timed (eager and by CUDA-graph replay) against one launch
      and against the plain version
-  7. the block store, with the launch counters set to 0 just before
-     it: 11 nodes of this package in one process over loopback TCP
+  7. the block store, with the launches read in the same way: 11
+     nodes of this package in one process over loopback TCP
      (tools/block_cluster.py), EC(8,3), each node's EcCodec on the card,
      256 blocks of 1 MiB.  PUT from 32 clients (every stored header hash
      vs the plain hasher), GET (bit-exact), degraded GET with 3 nodes
@@ -63,7 +64,7 @@ of its own, on each metadata engine:
      launches and dispatch breakdown; then a cProfile of 64 more PUTs
      and GETs.  A `links:` line tallies the links that closed between
      two running nodes (0 required until the first node is stopped)
-  8. the S3 cluster, with the launch counters set to 0 just before it:
+  8. the S3 cluster, with the launches read in the same way:
      11 nodes of this package in one process (tools/s3_cluster.py), each
      a whole `Garage` (tables, model, block store) with sqlite metadata,
      metadata replicated 3 times, EC(8,3) with each node's EcCodec on the
@@ -140,10 +141,42 @@ of its own, on each metadata engine:
      decodes, no launch from "host", K3 and K1 launched by "auto"; the
      host codec's ms per block for `encode_batch_hashed` and
      `decode_batch` beside the card's and K3's, on a JSON line of its own
-  12. one JSON line listing each kernel: launches in phase 5 (in phase 6
+  12. the observatories (run after phase 10, before phase 11): phase
+     10's stopped daemons booted again on their engines, every config
+     with `[tenants.premium]` (99.99, 250 ms), `[tenants.standard]`
+     (99.9, 1000 ms), `[tenants.batch]` (99.0, 5000 ms, two keys) and
+     `[admin] tenant_hog_share = 2.0` (the canary off: its key would be
+     a fifth tenant); four tenant keys from the seed by `key import`.
+     The reference's three 11-node acceptance tests at the card's
+     scale, K1/K2/K3 launches read from every daemon's `/metrics`
+     before and after each part: (a) tenants: each of four creates a
+     bucket and PUTs one 1 MiB object, three GET theirs 5 times, the
+     abuser PUTs 90 more, 8 at a time; `/v1/cluster/tenants` of daemon
+     0 must show 11 nodes reporting, the abuser first (class batch,
+     share > 0.5) of 4 tenants with a hog verdict, `/metrics/cluster`
+     must pass the dashboard lint with no key id in it, and the merged
+     `/v1/cluster/events` a `tenant-hog` warning; (b) traffic: 40
+     objects of 3 MiB, 260 GETs drawn Zipf(1.2) from the seed, 8 at a
+     time, each body checked; `/v1/traffic` top-10 precision >= 0.8
+     against the true counts, zipfS > 0.5, 11 nodes reporting (the
+     reference's slowed-peer ranking rides an in-process `FaultPlan`
+     and stays with the CPU mirror); (c) durability: the rollup of
+     `/v1/cluster/durability` healthy with minRedundancy 3; 3 daemons
+     of data ranks that serve no endpoint and are not rank 0 (whose
+     daemon owns every block) SIGTERMed (each exits 0); every block
+     at risk (healthy 0, unreadable 0, minRedundancy 0); every zipf
+     object read bit-exact from the 8 survivors through degraded
+     decodes; the three restarted, one with
+     its data dir wiped and `repair blocks` on it until its ledger has
+     no piece missing and the rollup is 100% healthy; then the owner's
+     data dir wiped in place and `repair blocks` on it until the same,
+     a finite repair ETA > 0 seen in its ledger while its pieces
+     drained.  Every codec dispatch on the card; SIGTERM to all
+  13. one JSON line listing each kernel: launches in phase 5 (in phase 6
      for the fan-out; `launches_block_store` in phase 7, `launches_s3`
      in phase 8, `launches_daemons` in phase 9, K3's in phase 10 as
-     `k3_launches_engines`; the fan-out's two are
+     `k3_launches_engines`, `launches_observatories` in phase 12; the
+     fan-out's two are
      its dispatches, `tpu_mesh_engaged_total`), mismatches, times and
      bound (K2's with its graph time, the replaced design's times, its
      stack frames, K3 against K1 + K2, and K5's eager and graph times)
@@ -255,6 +288,20 @@ def diff(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
     """(mismatching elements, max absolute difference)."""
     d = (a.to(torch.int32) - b.to(torch.int32)).abs()
     return int((d != 0).sum()), int(d.max()) if d.numel() else 0
+
+
+def launch_counts() -> dict:
+    """Each wrapper's launches so far in this process, as its
+    `cuda_kernel_launches_total{kernel}` counter holds them: a phase's
+    are the delta between a read just before it and one just after."""
+    return {"gf": _build.launch_count(gf_bitmatmul_cuda),
+            "blake3": _build.launch_count(blake3_batch),
+            "k3": _build.launch_count(encode_hash_tensor)}
+
+
+def launches_since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
 
 
 # --- phase 3: K1 ---------------------------------------------------------------
@@ -600,9 +647,9 @@ def host_fold(hashes: np.ndarray) -> int:
 
 
 def drive_mesh(dev, mesh) -> dict:
-    """The fan-out's main path, with the launch counters set to 0 just
-    before it and read just after, then its checks (whose launches are
-    not counted).  Returns the counts and what `time_mesh` reuses."""
+    """The fan-out's main path, with the launch counters read just before
+    it and just after, then its checks (whose launches are not
+    counted).  Returns the counts and what `time_mesh` reuses."""
     rng = np.random.default_rng(SEED + 6)
     s83 = BLOCK // K
     raw83 = rng.integers(0, 256, (256, K, s83), dtype=np.uint8)
@@ -617,8 +664,7 @@ def drive_mesh(dev, mesh) -> dict:
     plat = dev.type
     engaged0 = {kern: engaged(kern, plat) for kern in ("ec_encode", "ec_reconstruct")}
 
-    gf_bitmatmul_cuda.launches = 0
-    blake3_batch.launches = 0
+    before = launch_counts()
     enc83 = codec83.encode_batch(blocks83)
     pieces164 = codec164.encode_batch(blocks164)
     batches = [({j: p for j, p in enumerate(pieces) if j not in LOST164}, LOST164, BLOCK)
@@ -626,7 +672,7 @@ def drive_mesh(dev, mesh) -> dict:
     rebuilt = codec164.reconstruct_batch(batches)
     scrubbed = {b: pipe.sharded_apply(mesh, x) for b, x in scrub_data.items()}
     dryrun_multichip(MESH_N, devices=mesh.devices)
-    launches = {"gf": gf_bitmatmul_cuda.launches, "blake3": blake3_batch.launches}
+    launches = launches_since(before)
     if dev.type == "cuda":
         require(launches["gf"] > 0, "the mesh phase never launched K1")
         require(launches["blake3"] > 0, "the mesh phase never launched K2")
@@ -788,8 +834,7 @@ class Part:
         self.name, self.results, self.label = name, results, label
 
     def __enter__(self):
-        self.k1, self.k2 = gf_bitmatmul_cuda.launches, blake3_batch.launches
-        self.k3 = encode_hash_tensor.launches
+        self.before = launch_counts()
         self.disp = dispatch_breakdown()
         self.t0 = time.perf_counter()
         return self
@@ -799,9 +844,9 @@ class Part:
             return False
         wall = time.perf_counter() - self.t0
         disp = breakdown_delta(self.disp, dispatch_breakdown())
-        row = {"wall_s": wall, "k1_launches": gf_bitmatmul_cuda.launches - self.k1,
-               "k2_launches": blake3_batch.launches - self.k2,
-               "k3_launches": encode_hash_tensor.launches - self.k3,
+        launched = launches_since(self.before)
+        row = {"wall_s": wall, "k1_launches": launched["gf"], "k2_launches": launched["blake3"],
+               "k3_launches": launched["k3"],
                "kernel_s": sum(d.get("kernel_s", 0.0) for d in disp.values()),
                "dispatches": disp}
         self.results[self.name] = row
@@ -928,14 +973,14 @@ def count_codec_calls(codec, methods) -> dict:
         fn = getattr(codec, method)
 
         def wrapped(items, *impl, _fn=fn, _row=row):
-            d0, k0 = registry.counters.get(key, 0.0), gf_bitmatmul_cuda.launches
+            d0, k0 = registry.counters.get(key, 0.0), _build.launch_count(gf_bitmatmul_cuda)
             try:
                 return _fn(items, *impl)
             finally:
                 _row["calls"] += 1
                 _row["blocks"] += len(items)
                 _row["dispatches"] += int(registry.counters.get(key, 0.0) - d0)
-                _row["k1_launches"] += gf_bitmatmul_cuda.launches - k0
+                _row["k1_launches"] += _build.launch_count(gf_bitmatmul_cuda) - k0
 
         setattr(codec, method, wrapped)
     return tally
@@ -981,7 +1026,7 @@ async def gather_limited(n: int, items, fn):
 
 async def drive_block_store(dev, root) -> dict:
     """Phase 7's main path on an 11-node EC(8,3) cluster of this package's
-    nodes; the launch counters are set to 0 by the caller just before."""
+    nodes; the caller reads the launch counters just before and after."""
     rng = np.random.default_rng(SEED + 7)
     raw = rng.integers(0, 256, (N_BLOCKS, BLOCK), dtype=np.uint8)
     blocks = [raw[i].tobytes() for i in range(N_BLOCKS)]
@@ -1284,8 +1329,8 @@ def s3_objects(rng) -> tuple[list[bytes], list[bytes]]:
 async def drive_s3(dev, root) -> dict:
     """Phase 8's main path: 11 nodes of this package, each a whole
     `Garage` with its EcCodec(8, 3) on the card, S3 on the first two,
-    driven through the port's own `S3Client`.  The launch counters are
-    set to 0 by the caller just before."""
+    driven through the port's own `S3Client`.  The caller reads the
+    launch counters just before and after."""
     rng = np.random.default_rng(SEED + 8)
     big_len, part_len = BIG_BLOCKS * BLOCK, PART_BLOCKS * BLOCK
     big, small = s3_objects(rng)
@@ -1643,11 +1688,13 @@ class Fleet:
 class DaemonPart:
     """Wall time and the daemons' K1/K2/K3 launches (summed over every
     daemon, read from their `/metrics` before and after) of one part of
-    phase 9, printed beside phase 8's wall for the same part."""
+    phase 9, printed beside phase 8's wall for the same part (phase 12's
+    parts, whose `phase8` is None, have none beside them)."""
 
-    def __init__(self, name: str, results: dict, fleet: Fleet, sess, phase8: dict):
+    def __init__(self, name: str, results: dict, fleet: Fleet, sess, phase8: dict | None,
+                 label: str = "daemons"):
         self.name, self.results, self.fleet, self.sess = name, results, fleet, sess
-        self.phase8 = phase8
+        self.phase8, self.label = phase8, label
 
     async def __aenter__(self):
         await self.fleet.scrape(self.sess)
@@ -1663,9 +1710,11 @@ class DaemonPart:
         after = Fleet.launches(self.fleet.totals())
         row = {"wall_s": wall, **{f"{k}_launches": after[k] - self.before[k] for k in WRAPPERS}}
         self.results[self.name] = row
-        p8 = (self.phase8.get(self.name) or {}).get("wall_s")
-        print(f"daemons {self.name}: wall_s={wall:.6f} (phase 8: "
-              f"{'-' if p8 is None else f'{p8:.6f}'}) K1={row['k1_launches']} "
+        beside = ""
+        if self.phase8 is not None:
+            p8 = (self.phase8.get(self.name) or {}).get("wall_s")
+            beside = f" (phase 8: {'-' if p8 is None else f'{p8:.6f}'})"
+        print(f"{self.label} {self.name}: wall_s={wall:.6f}{beside} K1={row['k1_launches']} "
               f"K2={row['k2_launches']} K3={row['k3_launches']}")
         return False
 
@@ -2415,6 +2464,380 @@ def run_engines(dev, root: Path, fleet: dict) -> dict:
     return res
 
 
+# --- phase 12: the observatories through the daemons --------------------------------
+
+TENANTS = ("premium", "standard", "batch", "abuser")
+# [tenants.<class>]: availability target %, latency target ms, member tenants
+TENANT_CLASSES = {"premium": (99.99, 250.0, ("premium",)),
+                  "standard": (99.9, 1000.0, ("standard",)),
+                  "batch": (99.0, 5000.0, ("batch", "abuser"))}
+TENANT_HOG_SHARE = 2.0
+N_TENANT_GETS = 5  # GETs of its object by each classed tenant
+N_ABUSE, CONCURRENCY = 90, 8  # the abuser's PUTs of 1 MiB, 8 at a time (as every part here)
+N_ZIPF, ZIPF_BLOCKS, N_ZIPF_GETS, ZIPF_S = 40, 3, 260, 1.2
+ZIPF_BUCKET = "zipf"
+N_VICTIMS = M  # SIGTERMed daemons: every block keeps exactly k live pieces
+OBSERVE_S = 120  # how long a rollup may take to show what a part requires
+OBSERVATORIES_TIMEOUT_S = 600  # a stuck part fails the phase instead of the call
+OBSERVATORIES_BUDGET_S = 180  # the phase's aim on the card, printed beside its wall
+DURABILITY = "/v1/cluster/durability"
+
+
+def tenant_keys(rng) -> dict[str, tuple[str, str]]:
+    """Each tenant's (key id, secret), made from the seed."""
+    return {t: ("GK" + rng.bytes(12).hex(), rng.bytes(32).hex()) for t in TENANTS}
+
+
+def observatory_extra(keys: dict) -> dict:
+    """Phase 9's config additions, the three tenant classes and the hog
+    share.  The canary is off: its probe key would be a fifth tenant of
+    the S3 daemons, which the reference's in-process cluster does not
+    have (its nodes run no canary)."""
+    extra = {name: dict(keys_) for name, keys_ in DAEMON_EXTRA.items()}
+    extra["admin"] = {**extra.get("admin", {}), "tenant_hog_share": TENANT_HOG_SHARE,
+                      "canary_enabled": False}
+    for cls, (avail, lat, members) in TENANT_CLASSES.items():
+        extra[f"tenants.{cls}"] = {"availability_target": avail, "latency_target_msec": lat,
+                                   "keys": [keys[t][0] for t in members]}
+    return extra
+
+
+async def admin_post(sess, d: Daemon, path: str, body: dict):
+    async with sess.post(d.url(d.admin_port) + path, json=body,
+                         headers={"Authorization": f"Bearer {ADMIN_TOKEN}"}) as r:
+        require(r.status == 200, f"daemon {d.index} POST {path}: {r.status}")
+        return await r.json()
+
+
+async def drive_observatories(dev, daemons: list[Daemon]) -> dict:
+    """Phase 12: the reference's tenant, traffic and durability acceptance
+    tests (tests/test_tenant.py, test_traffic.py, test_durability.py) at
+    the card's scale, through phase 10's stopped daemons booted again on
+    their engines with the tenant classes in every config.  The
+    reference's slowed-peer ranking rides an in-process `FaultPlan`,
+    which no daemon config can set: it stays with the CPU mirror
+    (tests/test_torch_observatory_mirror.py)."""
+    cpu = dev.type != "cuda"
+    rng = np.random.default_rng(SEED + 12)
+    keys = tenant_keys(rng)
+    abuser = keys["abuser"][0]
+    body = rng.bytes(BLOCK)  # every tenant's object, as the reference's one body
+    zipf = [rng.bytes(ZIPF_BLOCKS * BLOCK) for _ in range(N_ZIPF)]
+    zkeys = [f"obj{i:03d}" for i in range(N_ZIPF)]
+    weights = 1.0 / np.arange(1, N_ZIPF + 1) ** ZIPF_S
+    seq = rng.choice(N_ZIPF, N_ZIPF_GETS, p=weights / weights.sum()).tolist()
+    fleet = Fleet(daemons)
+    res: dict = {}
+    statuses: Counter = Counter()
+    closing: list = []
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        extra = observatory_extra(keys)
+        for d in daemons:
+            d.extra = extra
+            d.start()
+        for d in daemons:
+            await asyncio.to_thread(d.wait_up, DAEMON_UP_S)
+        async with aiohttp.ClientSession() as sess:
+            async def meshed(d):
+                st = await admin_json(sess, d, "/v1/status")
+                return st["layoutVersion"] >= 1 and sum(n["isUp"] for n in st["nodes"]) == N_NODES
+
+            for d in daemons:
+                await poll(f"daemon {d.index} in the mesh", lambda d=d: meshed(d), OBSERVE_S)
+            res["boot"] = {"wall_s": time.perf_counter() - t0}
+            t0 = time.perf_counter()
+            await asyncio.to_thread(cli_many, [
+                (daemons[i].config, "key", "import", kid, secret, "--name", f"tenant-{t}")
+                for i, (t, (kid, secret)) in enumerate(keys.items())])
+            for kid, _secret in keys.values():
+                await admin_post(sess, daemons[0], f"/v1/key?id={kid}",
+                                 {"allow": {"createBucket": True}})
+            res["setup"] = {"wall_s": time.perf_counter() - t0}
+            print(f"observatories setup: {N_NODES} daemons booted again on their engines with "
+                  f"[tenants.premium|standard|batch] and tenant_hog_share {TENANT_HOG_SHARE} in "
+                  f"every config, wall_s={res['boot']['wall_s']:.6f}; {len(keys)} tenant keys "
+                  f"from the seed by `key import`, wall_s={res['setup']['wall_s']:.6f}")
+
+            await fleet.scrape(sess)
+            start = fleet.totals()
+
+            def part(name):
+                return DaemonPart(name, res, fleet, sess, None, label="observatories")
+
+            ep = [daemons[i].url(daemons[i].s3_port) for i in D_ENDPOINTS]
+            tenants = {t: CountingClient(ep[0], kid, secret, statuses)
+                       for t, (kid, secret) in keys.items()}
+            closing += tenants.values()
+            sem = asyncio.Semaphore(CONCURRENCY)
+
+            async def limited(coro):
+                async with sem:
+                    return await coro
+
+            # (a) tenants: tests/test_tenant.py::test_tenant_acceptance_11node
+            async with part("tenants"):
+                for t, c in tenants.items():
+                    await c.create_bucket(f"t-{t}")
+                    await c.put_object(f"t-{t}", "seed", body)
+                for t in ("premium", "standard", "batch"):
+                    for _ in range(N_TENANT_GETS):
+                        require(await tenants[t].get_object(f"t-{t}", "seed") == body,
+                                f"tenants: {t}'s GET differs from its PUT")
+                await asyncio.gather(*[limited(tenants["abuser"].put_object(
+                    "t-abuser", f"o{i:04d}", body)) for i in range(N_ABUSE)])
+
+            async def rolled_up():
+                c = (await admin_json(sess, daemons[0], "/v1/cluster/tenants"))["cluster"]
+                top = c["tenants"][0] if c["tenants"] else {}
+                done = (len(c["nodes"]) == N_NODES and c["nodesReporting"] == N_NODES
+                        and top.get("id") == abuser and top.get("class") == "batch"
+                        and top.get("share", 0) > 0.5 and c["fairness"]["tenants"] == len(TENANTS)
+                        and c["fairness"]["top1Share"] == top["share"]
+                        and (c["hog"] or {}).get("id") == abuser)
+                return c if done else None
+
+            t0 = time.perf_counter()
+            c = await poll("tenants: the rollup of 11 nodes, the abuser first, a hog verdict",
+                           rolled_up, OBSERVE_S, 1.0)
+            async with sess.get(daemons[0].url(daemons[0].admin_port) + "/metrics/cluster",
+                                headers={"Authorization": f"Bearer {METRICS_TOKEN}"}) as r:
+                require(r.status == 200, f"daemon 0 /metrics/cluster: {r.status}")
+                fed = await r.text()
+            try:
+                dashboard_lint().lint_exposition(fed)
+            except AssertionError as e:
+                raise SmokeFailure(f"tenants: /metrics/cluster fails the lint: {e}") from e
+            require("cluster_node_tenant_ops_total{node=" in fed,
+                    "tenants: no cluster_node_tenant_ops_total in /metrics/cluster")
+            require(not any(kid in fed for kid, _s in keys.values()),
+                    "tenants: a tenant key id is in /metrics/cluster")
+
+            async def hog_event():
+                ev = await admin_json(sess, daemons[0], "/v1/cluster/events?since=0")
+                hogs = [e for e in ev["events"] if e["name"] == "tenant-hog"]
+                return (ev, hogs) if len(ev["nodesResponding"]) == N_NODES and hogs else None
+
+            ev, hogs = await poll("tenants: the tenant-hog event in the merged timeline",
+                                  hog_event, OBSERVE_S, 1.0)
+            require(hogs[0]["attrs"]["tenant"] == abuser and hogs[0]["severity"] == "warn",
+                    f"tenants: the tenant-hog event {hogs[0]}")
+            res["tenants"]["rollup_s"] = time.perf_counter() - t0
+            top = c["tenants"][0]
+            print(f"observatories tenants: {c['nodesReporting']} of {N_NODES} nodes reporting; "
+                  f"first the abuser, class {top['class']}, share {top['share']} of "
+                  f"{c['fairness']['tenants']} tenants; hog verdict multiple "
+                  f"{c['hog'].get('multiple')}; /metrics/cluster through the dashboard lint, no "
+                  f"key id in it; tenant-hog event severity {hogs[0]['severity']} from "
+                  f"{len(ev['nodesResponding'])} nodes' events; rollup seen "
+                  f"{res['tenants']['rollup_s']:.6f} s after the last PUT")
+
+            # (b) traffic: tests/test_traffic.py::test_traffic_acceptance_11node_zipfian
+            reader = tenants["premium"]
+            await reader.create_bucket(ZIPF_BUCKET)
+            async with part("traffic_put"):
+                await asyncio.gather(*[limited(reader.put_object(ZIPF_BUCKET, k, b))
+                                       for k, b in zip(zkeys, zipf)])
+
+            async def zipf_get(i):
+                require(await reader.get_object(ZIPF_BUCKET, zkeys[i]) == zipf[i],
+                        f"traffic: GET of {zkeys[i]} differs from its PUT")
+
+            async with part("traffic_get"):
+                await asyncio.gather(*[limited(zipf_get(i)) for i in seq])
+            t = await admin_json(sess, daemons[0], "/v1/traffic")
+            got = [o["key"] for o in t["local"]["hotObjects"] if o["bucket"] == ZIPF_BUCKET][:10]
+            want = {zkeys[i] for i, _n in Counter(seq).most_common(10)}
+            precision = len(set(got) & want) / 10
+            require(precision >= 0.8,
+                    f"traffic: top-10 precision {precision}: {got} vs {sorted(want)}")
+            zipf_s = t["local"]["zipfS"]
+            require(zipf_s is not None and zipf_s > 0.5, f"traffic: zipfS {zipf_s}")
+
+            async def traffic_rolled_up():
+                c = (await admin_json(sess, daemons[0], "/v1/traffic"))["cluster"]
+                done = (len(c["nodes"]) == N_NODES and c["nodesReporting"] == N_NODES
+                        and c["aggregate"]["ops"] > 0)
+                return c if done else None
+
+            c = await poll("traffic: the rollup of 11 nodes", traffic_rolled_up, OBSERVE_S, 1.0)
+            res["traffic"] = {"precision": precision, "zipf_s": zipf_s}
+            print(f"observatories traffic: {N_ZIPF} objects of {ZIPF_BLOCKS} blocks, "
+                  f"{N_ZIPF_GETS} GETs Zipf(s={ZIPF_S}) from the seed, bit-exact; top-10 precision "
+                  f"{precision} against the true counts; zipfS {zipf_s}; "
+                  f"{c['nodesReporting']} nodes reporting, {c['aggregate']['ops']} ops")
+
+            # (c) durability: tests/test_durability.py::test_durability_acceptance_ec83
+            h0 = blake2sum(zipf[0][:BLOCK])
+            holder = {r: d.index for d in daemons for r in daemon_pieces(d, h0)}
+            require(sorted(holder) == list(range(K + M)), f"durability: block ranks {holder}")
+            owner = daemons[holder[0]]  # first live rank of every stripe: it counts every block
+            victims = [daemons[holder[r]] for r in range(1, K)
+                       if holder[r] not in D_ENDPOINTS][:N_VICTIMS]
+            wiped = victims[0]
+
+            written_ms = int(time.time() * 1000)  # the phase's last write was before this
+
+            async def steady():
+                """The rollup once it holds an owner's pass that began after
+                the last write: the owner counts every block."""
+                own = (await admin_json(sess, owner, DURABILITY))["local"]["snapshot"] or {}
+                if own.get("scannedAtMs", 0) - own.get("passSecs", 0) * 1000 <= written_ms:
+                    return None
+                agg = (await admin_json(sess, daemons[0], DURABILITY))["cluster"]
+                a = agg["aggregate"]
+                done = (agg["nodesReporting"] == N_NODES and a["blocksTotal"] == own["total"] > 0
+                        and a["healthy"] == a["blocksTotal"] and a["minRedundancy"] == 3)
+                return a if done else None
+
+            a = await poll("durability: the steady state", steady, OBSERVE_S, 1.0)
+            total = a["blocksTotal"]
+            print(f"observatories durability steady: blocksTotal {total:.0f}, healthy "
+                  f"{a['healthy']:.0f}, minRedundancy {a['minRedundancy']}; owner of every block "
+                  f"daemon {owner.index} (rank 0)")
+
+            await fleet.scrape(sess)
+            for v in victims:
+                fleet.retire(v)
+            t0 = time.perf_counter()
+            codes = await asyncio.gather(*[asyncio.to_thread(v.stop, DAEMON_STOP_S)
+                                           for v in victims])
+            require(codes == [0] * N_VICTIMS, f"durability: victims' exit codes {codes}")
+
+            async def at_risk():
+                agg = (await admin_json(sess, daemons[0], DURABILITY))["cluster"]
+                a = agg["aggregate"]
+                done = (agg["nodesReporting"] == N_NODES - N_VICTIMS and a["blocksTotal"] == total
+                        and a["atRisk"] == total and a["healthy"] == 0 and a["unreadable"] == 0
+                        and a["minRedundancy"] == 0)
+                return a if done else None
+
+            a = await poll(f"durability: every block at risk with {N_VICTIMS} daemons down",
+                           at_risk, OBSERVE_S, 1.0)
+            res["durability_at_risk"] = {"wall_s": time.perf_counter() - t0}
+            rank_of = {i: r for r, i in holder.items()}
+            print(f"observatories durability stopped: daemons {[v.index for v in victims]} (ranks "
+                  f"{[rank_of[v.index] for v in victims]}), exit codes "
+                  f"{codes}; after the rescans atRisk {a['atRisk']:.0f} = blocksTotal, healthy "
+                  f"{a['healthy']:.0f}, unreadable {a['unreadable']:.0f}, minRedundancy "
+                  f"{a['minRedundancy']}, {res['durability_at_risk']['wall_s']:.6f} s after "
+                  f"SIGTERM")
+
+            other = CountingClient(ep[1], *keys["premium"], statuses)  # no cached block there
+            closing.append(other)
+            async with part("degraded_get"):
+                got = await asyncio.gather(*[limited(other.get_object(ZIPF_BUCKET, k))
+                                             for k in zkeys])
+            require(got == zipf, "durability: a zipf object read from 8 survivors differs")
+            require(cpu or res["degraded_get"]["k1_launches"] > 0,
+                    "durability: the degraded GETs never launched K1")
+
+            shutil.rmtree(wiped.dir / "data")
+            for v in victims:
+                v.start()
+            for v in victims:
+                await asyncio.to_thread(v.wait_up, DAEMON_UP_S)
+            for d in daemons:
+                await poll(f"daemon {d.index} sees the restarted daemons",
+                           lambda d=d: meshed(d), OBSERVE_S)
+
+            async def healed(d: Daemon):
+                """Daemon `d`'s own pieces all on disk, by its ledger, and
+                the rollup 100% healthy with full redundancy."""
+                own = (await admin_json(sess, d, DURABILITY))["local"]["snapshot"] or {}
+                agg = (await admin_json(sess, daemons[0], DURABILITY))["cluster"]
+                a = agg["aggregate"]
+                done = (own.get("localMissingPieces") == 0 and agg["nodesReporting"] == N_NODES
+                        and a["blocksTotal"] == total and a["healthy"] == total
+                        and a["minRedundancy"] == 3)
+                return a if done else None
+
+            async def missing(d: Daemon):
+                own = (await admin_json(sess, d, DURABILITY))["local"]["snapshot"] or {}
+                return own.get("localMissingPieces")
+
+            first = await poll(f"durability: the wiped daemon {wiped.index}'s first pass",
+                               lambda: missing(wiped), OBSERVE_S)
+            async with part("repair"):
+                await asyncio.to_thread(cli, wiped.config, "repair", "blocks")
+                await poll("durability: the wiped daemon's repair", lambda: healed(wiped),
+                           REPAIR_S, 1.0)
+            rebuilt = len(daemon_piece_files(wiped))
+            print(f"observatories durability repair: daemons restarted, daemon {wiped.index} "
+                  f"with its data dir wiped ({first:.0f} local pieces missing); `repair blocks`: "
+                  f"{rebuilt} pieces rebuilt in wall_s={res['repair']['wall_s']:.6f}; rollup "
+                  f"100% healthy, minRedundancy 3")
+
+            # the ETA, as the reference reads it: the owner's disk wiped in
+            # place, so its own ledger sees every block's missing piece
+            # drain between passes
+            shutil.rmtree(owner.dir / "data")
+
+            async def owner_missing():
+                p = (await admin_json(sess, owner, DURABILITY))["local"]["snapshot"] or {}
+                return p.get("missingPieces") or None
+
+            wiped_owner = await poll("durability: the owner's wipe in its ledger",
+                                     owner_missing, OBSERVE_S)
+            etas: list[float] = []
+
+            async def owner_healed():
+                led = (await admin_json(sess, owner, DURABILITY))["local"]
+                left = (led["snapshot"] or {}).get("missingPieces")
+                eta = led["repairEtaSecs"]
+                if left and eta is not None and 0 < eta < float("inf"):
+                    etas.append(eta)
+                return left == 0 and await healed(owner)
+
+            async with part("repair_owner"):
+                await asyncio.to_thread(cli, owner.config, "repair", "blocks")
+                await poll("durability: the owner's repair", owner_healed, REPAIR_S, 0.25)
+            require(etas, "durability: no finite repair ETA seen while the owner's pieces drained")
+            rebuilt_owner = len(daemon_piece_files(owner))
+            res["durability"] = {"blocks_total": total, "rebuilt": rebuilt,
+                                 "rebuilt_owner": rebuilt_owner, "etas_s": etas}
+            print(f"observatories durability eta: the owner's data dir wiped in place "
+                  f"({wiped_owner:.0f} pieces missing by its ledger); `repair blocks`: "
+                  f"{rebuilt_owner} pieces rebuilt in wall_s={res['repair_owner']['wall_s']:.6f}; "
+                  f"repairEtaSecs seen {len(etas)} times while it drained, {min(etas)}-"
+                  f"{max(etas)} s; rollup 100% healthy, "
+                  f"minRedundancy 3")
+
+            await fleet.scrape(sess)
+            delta = fleet.totals()
+            delta.subtract(start)
+            platforms = {k[2] for k, v in delta.items() if k[0] == "dispatch" and v > 0}
+            want = "host" if cpu else "cuda"  # a CPU node codes with the native host codec
+            require(platforms == {want},
+                    f"observatories: codec dispatches on {sorted(platforms)}, not {want} only")
+            res["launches"] = Fleet.launches(delta)
+            res["dispatches"] = {f"{k[1]}/{k[2]}": int(v) for k, v in sorted(delta.items())
+                                 if k[0] == "dispatch" and v > 0}
+        codes = await asyncio.to_thread(stop_daemons, daemons, DAEMON_STOP_S)
+        require(codes == [0] * N_NODES, f"observatories: exit codes after SIGTERM {codes}")
+    except BaseException:
+        for d in daemons:
+            print(f"--- daemon {d.index} log tail:\n{d.tail(15)}", file=sys.stderr)
+            if LOG_DIR and d.log.exists():
+                Path(LOG_DIR).mkdir(parents=True, exist_ok=True)
+                shutil.copy(d.log, Path(LOG_DIR) / f"observatories-daemon{d.index}.log")
+        raise
+    finally:
+        for c in closing:
+            await c.close()
+        kill_all(daemons)
+    bad = {str(k): n for k, n in statuses.items() if not 200 <= k < 300}
+    require(not bad, f"observatories: response statuses {bad}")
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def run_observatories(dev, daemons: list[Daemon]) -> dict:
+    return asyncio.run(asyncio.wait_for(drive_observatories(dev, daemons),
+                                        OBSERVATORIES_TIMEOUT_S))
+
+
 # --- phase 11: the host codec -----------------------------------------------------
 
 HOST_REPS = 3  # timed passes over the codec's blocks per backend
@@ -2471,17 +2894,17 @@ def run_host_codec(dev, gen, card: str, k3_ms: float) -> dict:
     blocks = [rng.integers(0, 256, BLOCK, dtype=np.uint8).tobytes()
               for _ in range(HOST_CODEC_BLOCKS)]
     codec = EcCodec(K, M, device=dev)
-    wrappers = (gf_bitmatmul_cuda, blake3_batch, encode_hash_tensor)
-    launched = [w.launches for w in wrappers]
+    launched = launch_counts()
     host = codec.encode_batch_hashed(blocks, "host")
     items = [({i: p for i, p in enumerate(pieces) if i not in HOST_LOST}, BLOCK)
              for pieces, _h in host]
     host_plain = codec.decode_batch(items, "host")
-    require([w.launches for w in wrappers] == launched,
+    require(launch_counts() == launched,
             "host codec: impl=\"host\" launched a kernel")
     auto = codec.encode_batch_hashed(blocks, "auto")
     auto_plain = codec.decode_batch(items, "auto")
-    require(encode_hash_tensor.launches > launched[2] and gf_bitmatmul_cuda.launches > launched[0],
+    auto_launched = launches_since(launched)
+    require(auto_launched["k3"] > 0 and auto_launched["gf"] > 0,
             "host codec: impl=\"auto\" on the card launched no K3 or no K1")
     same = sum(h == a for h, a in zip(host, auto))
     require(all(h is not None for _p, h in host), "host codec: a block without piece hashes")
@@ -2561,10 +2984,9 @@ def main() -> int:
     k2 = check_k2(dev, gen, sm_count, clock_mhz * 1e6)
     composites = time_composites(dev, gen, sm_count, clock_mhz * 1e6)
 
-    gf_bitmatmul_cuda.launches = 0
-    blake3_batch.launches = 0
+    before = launch_counts()
     slice_res = run_slice(dev, gen)
-    launches = {"gf": gf_bitmatmul_cuda.launches, "blake3": blake3_batch.launches}
+    launches = launches_since(before)
     require(launches["gf"] > 0, "the slice never launched K1")
     require(launches["blake3"] > 0, "the slice never launched K2")
 
@@ -2577,10 +2999,9 @@ def main() -> int:
     fanout = time_mesh(dev, mesh, mesh_run)
 
     SCRATCH.mkdir(exist_ok=True)
-    gf_bitmatmul_cuda.launches = 0
-    blake3_batch.launches = 0
+    before = launch_counts()
     store = run_block_store(dev)
-    store_launches = {"gf": gf_bitmatmul_cuda.launches, "blake3": blake3_batch.launches}
+    store_launches = launches_since(before)
     require(store_launches["gf"] > 0, "the block store never launched K1")
     require(store_launches["blake3"] > 0, "the block store never launched K2")
     print(f"block store: {N_NODES} nodes EC({K},{M}), {N_BLOCKS} blocks x {BLOCK} B, "
@@ -2589,13 +3010,11 @@ def main() -> int:
           f"on {card}")
     print(links_line(7, store["links"], card))
 
-    gf_bitmatmul_cuda.launches = 0
-    blake3_batch.launches = 0
-    encode_hash_tensor.launches = 0
+    before = launch_counts()
     mesh0 = registry.counter_family_sum("tpu_mesh_engaged_total")  # K6's dispatches
     s3 = run_s3(dev)
-    s3_launches = {"gf": gf_bitmatmul_cuda.launches, "blake3": blake3_batch.launches,
-                   "k3": encode_hash_tensor.launches, "k6": int(registry.counter_family_sum("tpu_mesh_engaged_total") - mesh0)}
+    s3_launches = {**launches_since(before),
+                   "k6": int(registry.counter_family_sum("tpu_mesh_engaged_total") - mesh0)}
     require(s3_launches["k3"] > 0, "the S3 cluster never launched K3")
     require(s3_launches["gf"] > 0, "the S3 cluster never launched K1")
     require(s3_launches["blake3"] > 0, "the S3 cluster never launched K2")
@@ -2625,6 +3044,17 @@ def main() -> int:
               f"{engines['native_binding']}; statuses {json.dumps(engines['statuses'])} on {card}")
         print(f"engines figure (this host, through the Db interface, fsync on, "
               f"{FIGURE_ROWS} rows of {FIGURE_VALUE} B): {json.dumps(engines['figures'])} on {card}")
+
+        obs = run_observatories(dev, daemons["fleet"]["daemons"])
+        o_launches = obs["launches"]
+        for k, what in (("k3", "K3"), ("k1", "K1"), ("k2", "K2")):
+            require(o_launches[k] > 0, f"the observatories phase never launched {what}")
+        walls = {k: round(v["wall_s"], 6) for k, v in obs.items()
+                 if isinstance(v, dict) and "wall_s" in v}
+        print(f"observatories: {N_NODES} daemons EC({K},{M}), phase wall_s={obs['wall_s']:.6f} "
+              f"(aim: under {OBSERVATORIES_BUDGET_S} s, no object count cut); launches K1 "
+              f"{o_launches['k1']} K2 {o_launches['k2']} K3 {o_launches['k3']}; dispatches "
+              f"{json.dumps(obs['dispatches'])}; parts wall_s {json.dumps(walls)} on {card}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2640,6 +3070,7 @@ def main() -> int:
             "launches": launches["gf"],
             "launches_block_store": store_launches["gf"],
             "launches_s3": s3_launches["gf"], "launches_daemons": d_launches["k1"],
+            "launches_observatories": o_launches["k1"],
             "mismatches": sum(r["mismatches"] for r in k1.values()),
             "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
             "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
@@ -2655,6 +3086,8 @@ def main() -> int:
             "launches_s3": s3_launches["blake3"], "k3_launches_s3": s3_launches["k3"],
             "launches_daemons": d_launches["k2"], "k3_launches_daemons": d_launches["k3"],
             "k3_launches_engines": engines["write"]["k3_launches"],
+            "launches_observatories": o_launches["k2"],
+            "k3_launches_observatories": o_launches["k3"],
             "mismatches": sum(r["mismatches"] for r in k2.values())
             + slice_res["hash_mismatches"],
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),

@@ -32,6 +32,12 @@ logger = logging.getLogger("garage.block.resync")
 
 BACKOFF_MIN_MS = 60 * 1000
 BACKOFF_MAX_MS = 64 * 60 * 1000
+# A block whose refcount goes 0 -> 1 is checked this many RPC timeouts
+# later (the timeout a block PUT waits on for its sends): the PUT that
+# made the reference is still sending the block's pieces until then, and
+# a check before they land fails and backs off BACKOFF_MIN_MS.  The Rust
+# Garage's `block_incref` waits twice its RPC timeout the same way.
+INCREF_CHECK_TIMEOUTS = 2
 MAX_RESYNC_WORKERS = 8
 
 
@@ -69,6 +75,10 @@ class BlockResyncManager:
         else:
             self.queue.insert(key, b"")
         self._kick.set()
+
+    def incref_delay_ms(self) -> int:
+        """How long after a 0 -> 1 refcount its check is due."""
+        return int(INCREF_CHECK_TIMEOUTS * self.manager.helper.default_timeout * 1000)
 
     def queue_blocks(self, hashes: list[bytes], delay_ms: int = 0) -> None:
         """Bulk enqueue (repair-plane `Queue` nudges, gather failures):

@@ -64,8 +64,10 @@ class BlockRefTable(TableSchema):
         block = (new or old).block
         if not was_ref and now_ref:
             if self.block_manager.rc.incr(tx, block):
-                # 0 -> 1: we may need to fetch this block
-                self.block_manager.resync.queue_block(block, tx=tx)
+                # 0 -> 1: we may need to fetch this block, once the
+                # PUT that made the reference has had its time to land
+                resync = self.block_manager.resync
+                resync.queue_block(block, delay_ms=resync.incref_delay_ms(), tx=tx)
         if was_ref and not now_ref:
             if self.block_manager.rc.decr(tx, block):
                 # rc hit 0: deletion marker set; check after the delay

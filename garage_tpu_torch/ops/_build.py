@@ -184,13 +184,22 @@ def check(code: int, what: str) -> None:
         raise KernelLaunchError(f"{what}: CUDA error {code}")
 
 
+def _launch_key(wrapper) -> tuple:
+    return ("cuda_kernel_launches_total", (("kernel", wrapper.__name__),))
+
+
 def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`, and to the process's
-    `cuda_kernel_launches_total{kernel=<wrapper>}` counter, which a
+    """Add one to the process's `cuda_kernel_launches_total{kernel=
+    <wrapper>}` counter, the one count of a wrapper's launches, which a
     node's `/metrics` exposes (the launches of a node in another process
     are read there).  The batcher's encode and decode lanes launch from
     two worker threads at once, so the increments are taken under a lock
     to keep the counts exact."""
+    name, labels = _launch_key(wrapper)
     with _count_lock:
-        wrapper.launches += 1
-        registry.incr("cuda_kernel_launches_total", (("kernel", wrapper.__name__),))
+        registry.incr(name, labels)
+
+
+def launch_count(wrapper) -> int:
+    """How many times `wrapper` has launched its kernel in this process."""
+    return int(registry.counters.get(_launch_key(wrapper), 0))

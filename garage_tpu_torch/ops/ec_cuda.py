@@ -93,8 +93,8 @@ def gf_bitmatmul_cuda(
     `x` and `out` may be strided views (rows of contiguous bytes) of
     non-overlapping memory; `out` is allocated when not given.  A CUDA
     tensor launches the kernel on the current stream without
-    synchronising (`gf_bitmatmul_cuda.launches` counts the launches); a
-    CPU tensor runs `gf_bitmatmul`."""
+    synchronising (`_build.count_launch` counts the launches); a CPU
+    tensor runs `gf_bitmatmul`."""
     if x.dim() != 3 or x.dtype != torch.uint8:
         raise ValueError(f"x must be (B, q, S) uint8, got {tuple(x.shape)} {x.dtype}")
     b, q, s = x.shape
@@ -128,9 +128,6 @@ def gf_bitmatmul_cuda(
     return out
 
 
-gf_bitmatmul_cuda.launches = 0
-
-
 def encode_hash_tensor(
     bitmat: torch.Tensor, x: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -141,16 +138,13 @@ def encode_hash_tensor(
     hashes the data and parity pieces where they lie (`blake3_pieces`),
     in piece order — both on the current stream, with no host
     synchronisation between them and no copy of the data shards.
-    `encode_hash_tensor.launches` counts the dispatches that launched
-    that pair on the card."""
+    `_build.count_launch` counts the dispatches that launched that pair
+    on the card."""
     parity = gf_bitmatmul_cuda(bitmat, x)
     hashes = blake3_pieces(x, parity)
     if not telemetry.runs_on_host(x):
         _build.count_launch(encode_hash_tensor)
     return parity, hashes
-
-
-encode_hash_tensor.launches = 0
 
 
 def ec_apply_mesh(

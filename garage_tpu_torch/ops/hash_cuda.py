@@ -166,7 +166,7 @@ def _hash_rows(b: int, s: int, x0: torch.Tensor, q0: int, strides0,
 def blake3_batch(x: torch.Tensor) -> torch.Tensor:
     """x (B, L) uint8 -> (B, 32) uint8 BLAKE3 digests.  A CUDA tensor
     goes through kernel K2 on the current stream (no synchronisation;
-    `blake3_batch.launches` counts the launches); its rows must be
+    `_build.count_launch` counts the launches); its rows must be
     contiguous, with a 16-byte aligned base and row stride.  A CPU
     tensor goes through `blake3_batch_ref`."""
     if x.dim() != 2 or x.dtype != torch.uint8:
@@ -182,7 +182,7 @@ def blake3_pieces(data: torch.Tensor, parity: torch.Tensor) -> torch.Tensor:
     """Digests of every piece of a batch of coded blocks, read where the
     pieces lie: data (B, k, S) and parity (B, m, S) uint8 -> (B, k+m, 32),
     row j of entry b being piece j of block b (data, then parity).  One
-    K2 launch for a CUDA pair (counted on `blake3_batch.launches`); each
+    K2 launch for a CUDA pair (counted as `blake3_batch`'s); each
     source needs contiguous rows with 16-byte aligned base and strides.
     A CPU pair goes through `blake3_pieces_ref`."""
     if data.dim() != 3 or parity.dim() != 3:
@@ -203,6 +203,3 @@ def blake3_pieces(data: torch.Tensor, parity: torch.Tensor) -> torch.Tensor:
     _check_rows(parity, parity.stride()[:2], "parity")
     return _hash_rows(b, s, data, k, data.stride()[:2], parity, m,
                       parity.stride()[:2]).view(b, k + m, 32)
-
-
-blake3_batch.launches = 0

@@ -295,7 +295,7 @@ def launch(lib, x: torch.Tensor, out: torch.Tensor, scratch: torch.Tensor) -> No
 def old_k2(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """The replaced design on contiguous rows x (n, L) into out (n, 32),
     allocated here when not given, as the replaced wrapper did; not
-    counted on `blake3_batch.launches`."""
+    counted as a launch of `blake3_batch`."""
     if out is None:
         out = torch.empty((x.shape[0], 32), dtype=torch.uint8, device=x.device)
     code = _build.lib("blake3_block_per_row").blake3_rows(

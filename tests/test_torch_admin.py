@@ -4,12 +4,13 @@ it serves, held to the reference on the CPU.
   - the reference's overload-plane tests (tests/test_overload.py), its
     flight-recorder tests (tests/test_flight.py) and its latency X-ray
     tests (tests/test_latency_xray.py) run on port nodes through
-    `port_mirror`, each node asking for the CPU.  Left out by name:
+    `port_mirror`, each node asking for the CPU.  None is left out; two
+    run in tests/test_torch_left_out_mirror.py under a time limit of
+    their own (`torch_mirror.RUN_APART`):
     `test_debug_profile_endpoint_captures_hot_function`, a 2 s sampling
-    profile of a live node that flakes on the reference under the
-    suite's six workers, and `test_ec83_cluster_xray_acceptance`, an
-    11-node cluster that can wait forever there (ROADMAP queue 3).  The
-    overload file's 11-node burst is marked slow, as on the reference;
+    profile of a live node, and `test_ec83_cluster_xray_acceptance`, an
+    11-node cluster.  The overload file's 11-node burst is marked slow,
+    as on the reference;
   - the admin API's `/v1/...` JSON from a reference node and a port node
     with the same node key and the same imported key is equal once the
     random bucket id, the node's directories, the permissions' time
@@ -35,13 +36,11 @@ torch.set_num_threads(1)  # one thread per suite worker
 
 _limit = time_limit(90)
 
-FLIGHT_LEFT_OUT = ("test_debug_profile_endpoint_captures_hot_function",)
-XRAY_LEFT_OUT = ("test_ec83_cluster_xray_acceptance",)
 overload_mirror = port_mirror("test_overload.py")
 globals().update(mirrored_tests(overload_mirror, "overload"))
-flight_mirror = port_mirror("test_flight.py", FLIGHT_LEFT_OUT)
+flight_mirror = port_mirror("test_flight.py")
 globals().update(mirrored_tests(flight_mirror, "flight"))
-xray_mirror = port_mirror("test_latency_xray.py", XRAY_LEFT_OUT)
+xray_mirror = port_mirror("test_latency_xray.py")
 globals().update(mirrored_tests(xray_mirror, "latency_xray"))
 
 
@@ -49,8 +48,8 @@ def test_mirrors_hold_every_reference_scenario():
     from torch_mirror import assert_mirror_whole
 
     assert_mirror_whole("test_overload.py", overload_mirror, (), 19)
-    assert_mirror_whole("test_flight.py", flight_mirror, FLIGHT_LEFT_OUT, 6)
-    assert_mirror_whole("test_latency_xray.py", xray_mirror, XRAY_LEFT_OUT, 9)
+    assert_mirror_whole("test_flight.py", flight_mirror, (), 6)
+    assert_mirror_whole("test_latency_xray.py", xray_mirror, (), 9)
 
 
 # --- the admin API's JSON from twin nodes -------------------------------------------

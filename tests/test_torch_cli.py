@@ -3,9 +3,9 @@ utils/log_fmt, model/repair) held to the reference on the CPU.
 
   - the reference's admin-op scenarios (tests/test_admin_ops.py) and its
     cluster-telemetry tests (tests/test_cluster_telemetry.py) run on port
-    nodes through `port_mirror`, each node asking for the CPU.
-    `test_block_ops` is left out: it is red on the reference itself, a
-    background resync racing it with "no peers" (ROADMAP queue 3);
+    nodes through `port_mirror`, each node asking for the CPU.  None is
+    left out; `test_block_ops` runs in tests/test_torch_left_out_mirror.py
+    under a time limit of its own (`torch_mirror.RUN_APART`);
   - the port's argparse tree is the reference's: every subcommand,
     argument, default, choice and help text;
   - `format_table` and the log formatters give the reference's bytes on
@@ -32,18 +32,17 @@ from unittest import mock
 import pytest
 import torch
 
-from torch_mirror import differences, masked, mirrored_tests, port_mirror, time_limit, twin_node
+from torch_mirror import (assert_mirror_whole, differences, masked, mirrored_tests, port_mirror,
+                          time_limit, twin_node)
 
 torch.set_num_threads(1)  # one thread per suite worker
 
 _limit = time_limit(90)
 
-admin_ops_mirror = port_mirror("test_admin_ops.py", ("test_block_ops",))
+admin_ops_mirror = port_mirror("test_admin_ops.py")
 globals().update(mirrored_tests(admin_ops_mirror, "admin_ops"))
 telemetry_mirror = port_mirror("test_cluster_telemetry.py")
 globals().update(mirrored_tests(telemetry_mirror, "cluster_telemetry"))
-
-TESTS = Path(__file__).resolve().parent
 
 
 def run(coro, limit=60):
@@ -51,13 +50,8 @@ def run(coro, limit=60):
 
 
 def test_mirrors_hold_every_reference_scenario():
-    for ref, mirror, left in (("test_admin_ops.py", admin_ops_mirror, ("test_block_ops",)),
-                              ("test_cluster_telemetry.py", telemetry_mirror, ())):
-        src = (TESTS / ref).read_text()
-        want = {line.split("(")[0][4:] for line in src.splitlines()
-                if line.startswith("def test_")}
-        assert {k for k in vars(mirror) if k.startswith("test_")} == want - set(left), ref
-        assert "garage_tpu." not in mirror.mirror_source.replace("garage_tpu_torch.", "")
+    assert_mirror_whole("test_admin_ops.py", admin_ops_mirror, (), 7)
+    assert_mirror_whole("test_cluster_telemetry.py", telemetry_mirror, (), 12)
 
 
 # --- the argparse tree --------------------------------------------------------------
@@ -249,8 +243,13 @@ def shape(doc):
 
 def test_admin_rpc_bodies_equal_the_reference(tmp_path):
     node_key = random.Random(11).randbytes(32)
-    ref, ref_bucket = run(admin_bodies("garage_tpu", tmp_path, node_key))
-    port, port_bucket = run(admin_bodies("garage_tpu_torch", tmp_path, node_key))
+    # the platforms a codec has served (the digest's `tpu.plat`) are
+    # process-wide: each twin starts from none, as a node's own process
+    # does, whatever earlier tests in this worker dispatched
+    with mock.patch("garage_tpu.ops.telemetry._platforms_seen", set()), \
+            mock.patch("garage_tpu_torch.ops.telemetry._platforms_seen", set()):
+        ref, ref_bucket = run(admin_bodies("garage_tpu", tmp_path, node_key))
+        port, port_bucket = run(admin_bodies("garage_tpu_torch", tmp_path, node_key))
     assert port["status"]["node_id"] == ref["status"]["node_id"]
     # kept on purpose: the port banks no device-probe profile
     assert port["stats"].pop("tpuProbe") is None

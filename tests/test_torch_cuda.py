@@ -14,6 +14,7 @@ import torch
 from garage_tpu_torch.block.codec.ec import EcCodec
 from garage_tpu_torch.models.pipeline import ScrubRepairPipeline
 from garage_tpu_torch.ops import gf
+from garage_tpu_torch.ops._build import launch_count
 from garage_tpu_torch.ops.blake3_ref import blake3
 from garage_tpu_torch.ops.ec_cuda import (
     EcCuda, coding_state_from_numpy, encode_hash_tensor, gf_bitmatmul, gf_bitmatmul_cuda,
@@ -91,9 +92,9 @@ def test_blake3_kernel_matches_plain(dev, length):
 def test_blake3_warp_kernel_shapes(dev, rows, chunks):
     rng = np.random.default_rng(rows * 10_000 + chunks)
     x = torch.from_numpy(rng.integers(0, 256, (rows, chunks * 1024), dtype=np.uint8)).to(dev)
-    h0 = blake3_batch.launches
+    h0 = launch_count(blake3_batch)
     got = blake3_batch(x)
-    assert blake3_batch.launches == h0 + 1
+    assert launch_count(blake3_batch) == h0 + 1
     assert torch.equal(got, blake3_batch_ref(x))
     got_np, x_np = got.cpu().numpy(), x.cpu().numpy()
     for i in sorted({0, rows - 1}):
@@ -111,9 +112,9 @@ def test_blake3_pieces_reads_strided_views(dev, b, k, m, s):
     data, parity = buf[:, :k], buf[:, k + 1:]
     want = blake3_pieces_ref(data, parity)
     for d, p in ((data, parity), (data.contiguous(), parity.contiguous())):
-        h0 = blake3_batch.launches
+        h0 = launch_count(blake3_batch)
         got = blake3_pieces(d, p)
-        assert blake3_batch.launches == h0 + 1
+        assert launch_count(blake3_batch) == h0 + 1
         assert torch.equal(got, want)
     last = bytes(parity[-1, -1].cpu().numpy())
     assert bytes(got[-1, -1].cpu().numpy()) == blake3(last)
@@ -124,9 +125,9 @@ def test_fused_encode_hash_and_codec_on_card(dev):
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.integers(0, 256, (6, k, s), dtype=np.uint8)).to(dev)
     bm = coding_state_from_numpy(gf.cauchy_parity_matrix(k, m), dev)["bitmat"]
-    g0, h0 = gf_bitmatmul_cuda.launches, blake3_batch.launches
+    g0, h0 = launch_count(gf_bitmatmul_cuda), launch_count(blake3_batch)
     parity, hashes = encode_hash_tensor(bm, x)
-    assert (gf_bitmatmul_cuda.launches, blake3_batch.launches) == (g0 + 1, h0 + 1)
+    assert (launch_count(gf_bitmatmul_cuda), launch_count(blake3_batch)) == (g0 + 1, h0 + 1)
     want = gf_bitmatmul(bm, x)
     assert torch.equal(parity, want)
     assert torch.equal(hashes, blake3_pieces_ref(x, want))
@@ -170,9 +171,9 @@ def test_shared_card_mesh_matches_single_device(dev):
     data = rng.integers(0, 256, (9, k, s), dtype=np.uint8)
     fan = EcCuda(k, m, device=dev, mesh=mesh)
     one = EcCuda(k, m, device=dev, n_devices=1)
-    g0 = gf_bitmatmul_cuda.launches
+    g0 = launch_count(gf_bitmatmul_cuda)
     parity = fan.encode(data)
-    assert gf_bitmatmul_cuda.launches == g0 + 4
+    assert launch_count(gf_bitmatmul_cuda) == g0 + 4
     assert np.array_equal(parity, one.encode(data))
     assert np.array_equal(parity, gf.encode_blocks_ref(data, k, m))
     full = np.concatenate([data, parity], axis=1)

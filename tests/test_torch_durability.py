@@ -12,11 +12,14 @@ held to the reference module (garage_tpu/block/durability.py):
     read through the gossiped `dur.*` digest keys and
     `durability_response`, as the admin endpoint reads them.
 
-The cluster has no `model/` layer yet, so each node's digest carries the
-`dur` block of its own `DurabilityScanner` through
-`System.telemetry_collector`, and `durability_response` gets the few
-attributes of a garage it reads.  The cluster run is bounded by
-`asyncio.wait_for(..., 60)`."""
+The cluster is of block-store nodes, without the `model/` layer, so each
+node's digest carries the `dur` block of its own `DurabilityScanner`
+through `System.telemetry_collector`, and `durability_response` gets the
+few attributes of a garage it reads.  The cluster run is bounded by
+`asyncio.wait_for(..., 60)`.  The reference's whole file, on whole port
+nodes (the resync error ages, the digest keys, the rollup's tolerance
+and the 11-node EC(8,3) acceptance included), runs on the port in
+tests/test_torch_observatory_mirror.py."""
 
 import asyncio
 import shutil

@@ -4,8 +4,10 @@ with numpy from a seed: class resolution, bounded cardinality under
 tenant churn, per-class burn math, shed class resolution, the mismatch
 gate, the digest block, `[tenants]` config validation and the fairness
 rollup of `tenants_response`.  Each scenario of tests/test_tenant.py that
-needs no live daemon runs through both packages; the outputs must be
-identical and the port's must keep the reference tests' guarantees."""
+needs no live node runs through both packages; the outputs must be
+identical and the port's must keep the reference tests' guarantees.
+The reference's whole file, live nodes and the 11-node acceptance
+included, runs on the port in tests/test_torch_observatory_mirror.py."""
 
 import json
 from types import SimpleNamespace

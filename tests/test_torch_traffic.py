@@ -3,9 +3,11 @@ the reference module (garage_tpu/rpc/traffic.py) on the same inputs,
 made with numpy from a seed: op classification, the observatory's
 snapshot, digest block and replayable profile, and the per-peer
 piece-fetch ranking it reads from rpc/peer_health.py.  Each scenario of
-tests/test_traffic.py that needs no live daemon runs through both
+tests/test_traffic.py that needs no live node runs through both
 packages; the outputs must be identical and the port's must keep the
-reference tests' guarantees."""
+reference tests' guarantees.  The reference's whole file, live nodes
+and the 11-node acceptance included, runs on the port in
+tests/test_torch_observatory_mirror.py."""
 
 import json
 from collections import Counter

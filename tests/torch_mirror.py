@@ -4,10 +4,14 @@ The file's text, with every `garage_tpu` module name pointed at
 `garage_tpu_torch` (and the modules the port renamed, `ops.ec_tpu` and
 `ops.hash_tpu`, at `ops.ec_cuda` and `ops.hash_cuda`), is loaded as a
 module of its own, and its nodes' configs ask for the CPU (`[tpu]
-enable = false`).  Its `EcCodec` is `ReferenceEcCodec`, which takes the
-reference's constructor.  The reference test modules it takes helpers
-from are mirrored the same way.  Test files re-export a mirror's tests
-under `test_<prefix>_*` with `mirrored_tests`.
+enable = false`), those given as dicts and the TOML files its
+`write_config` writes for its daemons.  Its `EcCodec` is
+`ReferenceEcCodec`, which takes the reference's constructor.  The
+reference test modules it takes helpers from are mirrored the same way.
+Test files re-export a mirror's tests under `test_<prefix>_*` with
+`mirrored_tests`; the tests `RUN_APART` names run in
+tests/test_torch_left_out_mirror.py instead, each under its own time
+limit.
 """
 
 import faulthandler
@@ -26,6 +30,14 @@ from garage_tpu_torch.ops.ec_cuda import EcCuda
 
 TESTS = Path(__file__).resolve().parent
 CPU = {"enable": False}  # the port's nodes run the kernels' plain versions
+CPU_TOML = "\n[tpu]\nenable = false\n"  # the same, as a daemon's TOML table
+# tests of mirrored files that run in a file of their own, not beside the
+# rest of theirs: a hang there ends only that file's worker
+RUN_APART = {
+    "test_admin_ops.py": ("test_block_ops",),
+    "test_flight.py": ("test_debug_profile_endpoint_captures_hot_function",),
+    "test_latency_xray.py": ("test_ec83_cluster_xray_acceptance",),
+}
 
 # module names of the reference whose port counterpart has another name
 PORT_MODULES = {
@@ -112,6 +124,22 @@ def on_cpu(make_config):
     return wrapped
 
 
+def toml_on_cpu(write_config):
+    """A mirror's `write_config`, whose TOML file gets `[tpu] enable =
+    false` appended as its last table unless it has a `[tpu]` table of
+    its own (appended last, the text stays valid TOML)."""
+
+    @functools.wraps(write_config)
+    def wrapped(*a, **kw):
+        cfg = Path(write_config(*a, **kw))
+        text = cfg.read_text()
+        if not re.search(r"^\[tpu\]", text, flags=re.M):
+            cfg.write_text(text + CPU_TOML)
+        return cfg
+
+    return wrapped
+
+
 _loading: set[str] = set()
 
 
@@ -150,15 +178,20 @@ def port_mirror(ref_file: str, leave_out: tuple[str, ...] = (),
     exec(compile(src, mod.__file__, "exec"), mod.__dict__)
     if "config_from_dict" in mod.__dict__:
         mod.config_from_dict = on_cpu(mod.config_from_dict)
+    if "write_config" in mod.__dict__:
+        mod.write_config = toml_on_cpu(mod.write_config)
     for t in leave_out:
         delattr(mod, t)
     return mod
 
 
-def mirrored_tests(mod: types.ModuleType, prefix: str) -> dict:
-    """The tests of a mirror, renamed `test_<prefix>_<name>`."""
+def mirrored_tests(mod: types.ModuleType, prefix: str, apart: bool = False) -> dict:
+    """The tests of a mirror, renamed `test_<prefix>_<name>`: those that
+    `RUN_APART` names for its file when `apart`, the others when not."""
+    names = RUN_APART.get(Path(mod.__file__).name, ())
     return {f"test_{prefix}_{k.removeprefix('test_')}": v
-            for k, v in vars(mod).items() if k.startswith("test_") and callable(v)}
+            for k, v in vars(mod).items()
+            if k.startswith("test_") and callable(v) and (k in names) == apart}
 
 
 def refusing_skips(tests: dict) -> dict:
