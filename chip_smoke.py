@@ -179,7 +179,24 @@ of its own, on each metadata engine:
      fan-out's two are
      its dispatches, `tpu_mesh_engaged_total`), mismatches, times and
      bound (K2's with its graph time, the replaced design's times, its
-     stack frames, K3 against K1 + K2, and K5's eager and graph times)
+     stack frames, K3 against K1 + K2, and K5's eager and graph times),
+     and each kernel's `sanitized` field from phase 14
+  14. verify and sanitize (run right after phase 4, so a memory error
+     fails the run before the cluster phases): `tools/verify.py` in this
+     process, which must print ALL-OK for its 18 encode checks, 12
+     repair checks through `EcCuda.reconstruct`, the pipeline's parity
+     and every case of `verify.CASES` (the K2 rows among them), against
+     the numpy LUT oracle, the host BLAKE3 library and the pure-Python
+     BLAKE3; then `tools/sanitize_cuda.py`: compute-sanitizer's canary
+     under memcheck and, where the tool can attach to the card, the case
+     list under memcheck, racecheck, synccheck and initcheck, each in a
+     child with the caching allocator off and the tool's kernel filter;
+     then the guard-page allocator's canary and the case list with every
+     tensor against an unmapped granule, after its end and before its
+     start (racecheck's and synccheck's kind of check, with no card, is
+     `tools/cuda_on_host.py`).  One `sanitizer:` line per run (errors or
+     violations, launches per kernel, wall seconds, the card's name and
+     power limit).  `--sanitize` runs this phase alone after the builds
 
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero without it, as does a machine without CUDA.
@@ -244,6 +261,7 @@ from garage_tpu_torch.tools.k2_compare import (
 from garage_tpu_torch.tools.s3_cluster import (
     make_key, make_s3_cluster, stop_s3_cluster, stop_s3_node,
 )
+from garage_tpu_torch.tools import sanitize_cuda, verify
 from garage_tpu_torch.tools.sass import per_compression, sass_int_ops
 from garage_tpu_torch.tools.timing import graph_ms, time_ms
 from garage_tpu_torch.utils.background import WorkerState
@@ -489,6 +507,52 @@ def time_composites(dev, gen, sm_count: int, clock_hz: float) -> dict:
               f"bound_share_graph={(k1_ms + k2_ms) / g_ms:.4f}")
     rows["K3_split"] = split_k3(dev, gen, bm, s)
     return rows
+
+
+# --- phase 14: verify and sanitize -------------------------------------------------
+
+# 18 encode checks, 12 repairs through EcCuda.reconstruct, the pipeline's parity
+VERIFY_MIN_CHECKS = 31
+VERIFY_SANITIZE_BUDGET_S = 180  # the phase's aim on the card, printed beside its wall
+
+
+def verify_and_sanitize(dev, card: str) -> dict:
+    """Phase 14: `tools/verify.py` in this process, then every check of
+    `tools/sanitize_cuda.py`; returns the kernels' `sanitized` field.  A
+    mismatch, a report, a fault, a timeout or a missing launch raises and
+    fails the run."""
+    t0 = time.perf_counter()
+    lines: list[str] = []
+    fails = verify.verify(dev, out=lines.append)
+    for line in lines:
+        print(f"verify: {line}")
+    ok = sum(line.endswith(": OK") for line in lines)
+    k2_rows = sum(c.kind in ("k2", "pieces") for c in verify.CASES)
+    require(fails == 0 and lines[-1] == "ALL-OK", f"verify: {lines[-1]}")
+    require(ok >= VERIFY_MIN_CHECKS + k2_rows,
+            f"verify: {ok} checks, fewer than {VERIFY_MIN_CHECKS} + {k2_rows} K2 rows")
+    verify_s = time.perf_counter() - t0
+    runs = sanitize_cuda.run_all(card)
+    sanitized = sanitize_cuda.sanitized_field(runs)
+    wall = time.perf_counter() - t0
+    print(f"phase 14: verify {ok} checks ALL-OK wall_s={verify_s:.6f}; sanitized "
+          f"{json.dumps(sanitized)}; phase wall_s={wall:.6f} (aim: under "
+          f"{VERIFY_SANITIZE_BUDGET_S} s) on {card}")
+    return sanitized
+
+
+def sanitize_only() -> int:
+    """Phase 14 alone, after the builds."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test needs "
+              "a CUDA card", file=sys.stderr)
+        return 1
+    dev, card = torch.device("cuda", 0), smi("name,power.limit")
+    print(card)
+    _build.build_all()
+    _native.build()
+    verify_and_sanitize(dev, card)
+    return 0
 
 
 # --- phase 5: the slice --------------------------------------------------------
@@ -2983,6 +3047,7 @@ def main() -> int:
     k1 = check_k1(dev, gen)
     k2 = check_k2(dev, gen, sm_count, clock_mhz * 1e6)
     composites = time_composites(dev, gen, sm_count, clock_mhz * 1e6)
+    sanitized = verify_and_sanitize(dev, card)
 
     before = launch_counts()
     slice_res = run_slice(dev, gen)
@@ -3075,7 +3140,7 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
             "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
             "bound_ms": main_k1["bound_ms"], "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": None, "sanitized": sanitized,
         },
         {
             "name": "blake3", "route": "cuda",
@@ -3101,6 +3166,7 @@ def main() -> int:
                 composites["K3"]["ms"] / composites["K3_split"]["k1_plus_k2"]["ms"],
             "k5_ms": composites["K5"]["ms"], "k5_graph_ms": composites["K5"]["graph_ms"],
             "k5_bound_ms": composites["K5"]["bound_ms"],
+            "sanitized": sanitized,
         },
         {
             "name": "mesh_fanout", "route": "cuda (K1 per entry)",
@@ -3112,7 +3178,7 @@ def main() -> int:
             "max_abs_err": fanout["max_abs_err"],
             "ms": fanout["ms"], "plain_ms": fanout["plain_ms"],
             "bound_ms": fanout["bound_ms"], "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": None, "sanitized": sanitized,
         },
     ]
     print(json.dumps({"host_codec": {"source": "garage_tpu_torch/_native/gf8.cpp",
@@ -3150,6 +3216,8 @@ def phase8_runs(n: int) -> int:
 
 
 if __name__ == "__main__":
+    if "--sanitize" in sys.argv:
+        sys.exit(sanitize_only())
     if "--phase8" in sys.argv:
         args = sys.argv[1:]
         if "--floor" in args:

@@ -23,6 +23,7 @@ from garage_tpu_torch.ops.hash_cuda import (
     blake3_batch, blake3_batch_ref, blake3_pieces, blake3_pieces_ref,
 )
 from garage_tpu_torch.parallel.mesh import make_mesh
+from garage_tpu_torch.tools import sanitize_cuda, verify
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)
@@ -201,3 +202,23 @@ def test_auto_width_on_one_card_never_fans_out(dev, monkeypatch):
     data = np.random.default_rng(7).integers(0, 256, (64, 8, 1024), dtype=np.uint8)
     assert np.array_equal(ec.encode(data), gf.encode_blocks_ref(data, 8, 3))
     assert calls == []
+
+
+def test_verify_on_card_is_all_ok(dev):
+    """tools/verify.py on the card: every encode, repair, pipeline and
+    case check bit-exact against the oracles."""
+    lines = []
+    assert verify.verify(dev, out=lines.append) == 0, [ln for ln in lines if "MISMATCH" in ln]
+    assert lines[-1] == "ALL-OK"
+
+
+@pytest.mark.parametrize("mode,poison", sanitize_cuda.GUARD_RUNS)
+def test_cases_clean_under_the_guard_page_allocator(dev, mode, poison):
+    """The case list in a child whose every tensor lies against an
+    unmapped granule, fresh memory poisoned: no fault, no violation, a
+    launch of each kernel."""
+    so = sanitize_cuda.build_tool_library("guard_alloc.cu")
+    run = sanitize_cuda._run(f"guard-{mode}", sanitize_cuda.child_command(
+        ["--guard", str(so), mode, str(poison)]), sanitize_cuda.GUARD_TIMEOUT_S)
+    stats = sanitize_cuda.check_guard_run(run, verify.KERNELS)
+    assert stats["violations"] == 0 and stats["allocs"] > 0
