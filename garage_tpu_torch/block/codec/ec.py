@@ -31,6 +31,11 @@ under `path="numpy"` and records `ec_encode_host` / `ec_decode_host`
 dispatches on the "host" platform, the reference's labels.  Nothing
 falls back: a CUDA codec whose kernel fails raises, and so does a
 failed native build.
+
+On the card path each group's `np.stack` and the `bytes()` copies out of
+its results (decode's joins included) are timed as the stages `stack`
+and `unstack` (ops/telemetry.py), labelled with the call's op; a
+systematic decode and the host backend record no stage.
 """
 
 from __future__ import annotations
@@ -136,14 +141,17 @@ class EcCodec(BlockCodec):
         if self._on_host(impl):
             return [self._encode_host(b) for b in blocks]
         out: list[list[bytes] | None] = [None] * len(blocks)
-        for _s, idxs in self._by_size(blocks).items():
-            data = np.stack([self._split(blocks[i]) for i in idxs])  # (B,k,s)
-            _count("encode", self._path, len(idxs), data.nbytes)
+        for s, idxs in self._by_size(blocks).items():
+            b = len(idxs)
+            with telemetry.stage("stack", b, "encode", b * self.k * s):
+                data = np.stack([self._split(blocks[i]) for i in idxs])  # (B,k,s)
+            _count("encode", self._path, b, data.nbytes)
             parity = self._ec.encode(data)  # (B,m,s)
-            for j, i in enumerate(idxs):
-                out[i] = [bytes(data[j, x]) for x in range(self.k)] + [
-                    bytes(parity[j, x]) for x in range(self.m)
-                ]
+            with telemetry.stage("unstack", b, "encode", b * self.n_pieces * s):
+                for j, i in enumerate(idxs):
+                    out[i] = [bytes(data[j, x]) for x in range(self.k)] + [
+                        bytes(parity[j, x]) for x in range(self.m)
+                    ]
         return out  # type: ignore[return-value]
 
     def encode_batch_hashed(
@@ -158,20 +166,23 @@ class EcCodec(BlockCodec):
         if self._on_host(impl):
             return self._encode_hashed_host(blocks)
         out: list[tuple[list[bytes], list[bytes] | None] | None] = [None] * len(blocks)
-        for _s, idxs in self._by_size(blocks).items():
-            data = np.stack([self._split(blocks[i]) for i in idxs])  # (B,k,s)
-            _count("encode", self._path, len(idxs), data.nbytes)
+        for s, idxs in self._by_size(blocks).items():
+            b = len(idxs)
+            with telemetry.stage("stack", b, "encode", b * self.k * s):
+                data = np.stack([self._split(blocks[i]) for i in idxs])  # (B,k,s)
+            _count("encode", self._path, b, data.nbytes)
             parity, hashes = self._ec.encode_and_hash(data)
-            for j, i in enumerate(idxs):
-                pieces = [bytes(data[j, x]) for x in range(self.k)] + [
-                    bytes(parity[j, x]) for x in range(self.m)
-                ]
-                hs = (
-                    None
-                    if hashes is None
-                    else [bytes(hashes[j, x]) for x in range(self.n_pieces)]
-                )
-                out[i] = (pieces, hs)
+            with telemetry.stage("unstack", b, "encode", b * self.n_pieces * s):
+                for j, i in enumerate(idxs):
+                    pieces = [bytes(data[j, x]) for x in range(self.k)] + [
+                        bytes(parity[j, x]) for x in range(self.m)
+                    ]
+                    hs = (
+                        None
+                        if hashes is None
+                        else [bytes(hashes[j, x]) for x in range(self.n_pieces)]
+                    )
+                    out[i] = (pieces, hs)
         return out  # type: ignore[return-value]
 
     def note_systematic_read(self, block_len: int) -> None:
@@ -201,16 +212,19 @@ class EcCodec(BlockCodec):
                 (present, want, self.piece_len(block_len)), []
             ).append(idx)
         for (present, want, s), idxs in groups.items():
-            shards = np.stack([self._gather(items[i][0], present, s) for i in idxs])
-            _count("decode", "reconstruct", len(idxs), shards.nbytes)
-            _count("reconstruct", self._path, len(idxs), shards.nbytes)
-            rec = self._ec.reconstruct(shards, list(present), list(want))
-            for j, i in enumerate(idxs):
-                pieces, block_len = items[i]
-                full = {**pieces}
-                for x, w in enumerate(want):
-                    full[w] = bytes(rec[j, x])
-                out[i] = b"".join(full[r] for r in range(self.k))[:block_len]
+            b = len(idxs)
+            with telemetry.stage("stack", b, "decode", b * self.k * s):
+                shards = np.stack([self._gather(items[i][0], present, s) for i in idxs])
+            _count("decode", "reconstruct", b, shards.nbytes)
+            _count("reconstruct", self._path, b, shards.nbytes)
+            rec = self._ec.reconstruct(shards, list(present), list(want), op="decode")
+            with telemetry.stage("unstack", b, "decode", b * self.k * s):
+                for j, i in enumerate(idxs):
+                    pieces, block_len = items[i]
+                    full = {**pieces}
+                    for x, w in enumerate(want):
+                        full[w] = bytes(rec[j, x])
+                    out[i] = b"".join(full[r] for r in range(self.k))[:block_len]
         return out  # type: ignore[return-value]
 
     def reconstruct_batch(
@@ -228,11 +242,14 @@ class EcCodec(BlockCodec):
             key = (present, tuple(sorted(want)), self.piece_len(block_len))
             groups.setdefault(key, []).append(idx)
         for (present, want, s), idxs in groups.items():
-            shards = np.stack([self._gather(batches[i][0], present, s) for i in idxs])
-            _count("reconstruct", self._path, len(idxs), shards.nbytes)
+            b = len(idxs)
+            with telemetry.stage("stack", b, "reconstruct", b * self.k * s):
+                shards = np.stack([self._gather(batches[i][0], present, s) for i in idxs])
+            _count("reconstruct", self._path, b, shards.nbytes)
             rec = self._ec.reconstruct(shards, list(present), list(want))
-            for j, i in enumerate(idxs):
-                out[i] = {w: bytes(rec[j, x]) for x, w in enumerate(want)}
+            with telemetry.stage("unstack", b, "reconstruct", b * len(want) * s):
+                for j, i in enumerate(idxs):
+                    out[i] = {w: bytes(rec[j, x]) for x, w in enumerate(want)}
         return out  # type: ignore[return-value]
 
     # --- the host backend (the reference's native codec paths) ---------------------

@@ -21,8 +21,7 @@ Shared behavior per lane:
   - the dispatch itself runs in a worker thread (`asyncio.to_thread`),
     so the codec math never blocks the event loop.  The worker thread
     launches on its current stream, the device's default stream, and
-    the device->host copy that ends each dispatch is its
-    synchronisation point;
+    waits there for its kernels before it copies the results back;
 
   - a dispatch error fails only that batch's waiters; a cancelled
     request abandons its entry without poisoning the other requests
@@ -30,7 +29,9 @@ Shared behavior per lane:
 
 Phase attribution (utils/latency.py): the submitting request records
 `codec_batch_wait` (queue time until its dispatch starts) separately
-from `encode`/`decode` (the dispatch itself).
+from `encode`/`decode` (the dispatch itself).  With the tracer on, a
+dispatch's `codec:*` spans are children of the span of the request
+whose entry heads its batch.
 
 Metric families (the reference package's names):
 
@@ -43,19 +44,27 @@ Metric families (the reference package's names):
   block_codec_batch_queue_depth{id}  blocks waiting in a lane (G)
   block_codec_batch_lane_linger{lane,flush}  seconds each block sat in
                                   its lane from submit to dispatch start
+  block_codec_stage_duration{op,stage="handoff"}  (ops/telemetry.py)
+                                  each returned dispatch's wait for its
+                                  worker thread to start it plus its wait
+                                  for the loop to resume it; `op` is the
+                                  lane's name
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import itertools
 import logging
 import time
 
+from ..ops import telemetry
 from ..utils.aio import reap, spawn_supervised
 from ..utils.error import Error
 from ..utils.latency import phase_span
 from ..utils.metrics import SIZE_BUCKETS, registry
+from ..utils.tracing import tracer
 
 logger = logging.getLogger("garage.block.codec_batch")
 
@@ -67,12 +76,15 @@ _gauge_ids = itertools.count(1)
 
 
 class _Entry:
-    __slots__ = ("payload", "nbytes", "arrived", "started", "fut")
+    __slots__ = ("payload", "nbytes", "arrived", "span", "started", "fut")
 
     def __init__(self, payload, nbytes: int):
         self.payload = payload
         self.nbytes = nbytes
         self.arrived = time.monotonic()
+        # the submitting request's span: a dispatch that this entry heads
+        # files its `codec:*` spans under it
+        self.span = tracer.current()
         # set when this entry's dispatch begins (ends codec_batch_wait)
         self.started = asyncio.Event()
         self.fut: asyncio.Future = asyncio.get_running_loop().create_future()
@@ -122,8 +134,10 @@ class _Lane:
         self.pending_bytes += nbytes
         self.wake.set()
         if self.task is None:
-            self.task = spawn_supervised(
-                self._run(), name=f"codec-batcher-{self.name}"
+            # the flusher serves every later request too, so it starts in
+            # a context of its own, not a copy of this request's
+            self.task = contextvars.Context().run(
+                spawn_supervised, self._run(), name=f"codec-batcher-{self.name}"
             )
         try:
             with phase_span("codec_batch_wait"):
@@ -211,30 +225,38 @@ class _Lane:
         registry.incr(self.dispatch_counter, (("flush", flush),))
         if len(batch) > 1 and self.size_metrics:
             registry.incr("block_codec_batch_coalesced_total", by=len(batch))
-        try:
-            # the sync batch dispatch is handed to a worker thread — the
-            # loop keeps serving other requests while the codec math runs
-            results = await asyncio.to_thread(
-                self.dispatch_fn, [e.payload for e in batch], self.batcher.impl
-            )
-        except Exception as e:  # noqa: BLE001 — fails THIS batch's waiters
-            for ent in batch:
-                if not ent.fut.done():
-                    ent.fut.set_exception(
-                        Error(f"batched codec dispatch failed: {e!r}")
-                    )
-            return
-        except BaseException:
-            # flusher cancelled mid-dispatch (close() during node stop):
-            # this batch was already drained out of `pending`, so close()
-            # can't fail its futures — do it here or every waiter of the
-            # in-flight batch hangs forever on `await entry.fut`
-            for ent in batch:
-                if not ent.fut.done():
-                    ent.fut.set_exception(
-                        Error("codec batcher closed mid-dispatch")
-                    )
-            raise
+        handoff = telemetry.Handoff(
+            self.name, len(batch), sum(e.nbytes for e in batch)
+        )
+        # the dispatch's spans are filed under the request whose entry
+        # heads the batch, the one the lane's linger waited for
+        with tracer.adopt(batch[0].span):
+            try:
+                # the sync batch dispatch is handed to a worker thread — the
+                # loop keeps serving other requests while the codec math runs
+                results = await asyncio.to_thread(
+                    handoff.run, self.dispatch_fn, [e.payload for e in batch],
+                    self.batcher.impl,
+                )
+            except Exception as e:  # noqa: BLE001 — fails THIS batch's waiters
+                for ent in batch:
+                    if not ent.fut.done():
+                        ent.fut.set_exception(
+                            Error(f"batched codec dispatch failed: {e!r}")
+                        )
+                return
+            except BaseException:
+                # flusher cancelled mid-dispatch (close() during node stop):
+                # this batch was already drained out of `pending`, so close()
+                # can't fail its futures — do it here or every waiter of the
+                # in-flight batch hangs forever on `await entry.fut`
+                for ent in batch:
+                    if not ent.fut.done():
+                        ent.fut.set_exception(
+                            Error("codec batcher closed mid-dispatch")
+                        )
+                raise
+            handoff.resumed()
         for ent, res in zip(batch, results):
             if not ent.fut.done():  # a waiter may have been cancelled
                 ent.fut.set_result(res)

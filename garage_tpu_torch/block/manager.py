@@ -37,6 +37,7 @@ import zstandard
 from .. import _native
 from ..db import Db
 from ..net.message import PRIO_BACKGROUND, PRIO_NORMAL, Req, Resp
+from ..ops.telemetry import record_stage, stage
 from ..rpc.layout.types import partition_of
 from ..rpc.rpc_helper import RpcHelper
 from ..rpc.system import System
@@ -123,10 +124,14 @@ def wrap_piece(block_len: int, piece: bytes, phash: bytes | None = None) -> byte
     own per-piece hash.  Trust is unchanged — the sender is already the
     authority for the piece bytes themselves, and a wrong hash surfaces
     at scrub exactly like a corrupted piece would (quarantine + resync
-    rebuild)."""
+    rebuild).  Timed as the codec plane's stage `wrap`, one piece a use,
+    recorded and never a span: it runs thousands of times a second."""
+    t0 = time.perf_counter()
     if phash is None or len(phash) != 32:
         phash = piece_hash(piece)
-    return PIECE_MAGIC + block_len.to_bytes(8, "big") + phash + piece
+    stored = PIECE_MAGIC + block_len.to_bytes(8, "big") + phash + piece
+    record_stage("wrap", time.perf_counter() - t0, 1)
+    return stored
 
 
 def unwrap_piece(stored: bytes, verify: bool = True) -> tuple[int, bytes]:
@@ -1379,10 +1384,11 @@ class BlockManager:
         would be laundered into freshly rebuilt pieces.  Like the grouped
         rebuild, it takes `[block] batch_impl`, the batcher's backend
         policy.  Blocking: run it in a worker thread, never on the event
-        loop."""
+        loop.  The hashes are timed as the stage `verify_hash`."""
         plain = self.codec.decode_batch([(dict(p), blen) for _h, p, blen in items],
                                         self.block_config.batch_impl)
-        return [blake2sum(d) == h for (h, _p, _b), d in zip(items, plain)]
+        with stage("verify_hash", len(items), nbytes=sum(map(len, plain))):
+            return [blake2sum(d) == h for (h, _p, _b), d in zip(items, plain)]
 
     def ec_ranks_of(self, hash32: bytes) -> list[int]:
         """THIS node's piece ranks across ALL active layout versions,

@@ -176,8 +176,9 @@ class EcCuda:
     block codec layer (block/codec/ec.py) handles bytes <-> array
     marshalling and dispatch batching.  The batch axis is padded to its
     power-of-two bucket and the pad rows' outputs sliced off.  Each
-    dispatch ends in the device->host copy of its result, which is the
-    synchronisation point.
+    dispatch copies its batch to the device, launches, waits for its
+    kernels (`DispatchRecord.compute`'s end, the synchronisation point) and
+    copies its result back, each step timed as a stage of its own.
 
     Mesh fan-out (the reference's `EcTpu._apply_mesh`): `encode` and
     `reconstruct` split a batch over the mesh's entries when the mesh
@@ -241,11 +242,13 @@ class EcCuda:
             copy = self._replicas[(key, dev)] = base.to(dev)
         return copy
 
-    def _apply(self, key, x: np.ndarray, kernel: str) -> np.ndarray:
+    def _apply(self, key, x: np.ndarray, kernel: str, op: str) -> np.ndarray:
+        """One K1 dispatch of the batch x for the codec's `op` (encode,
+        decode or reconstruct, the label of its stages)."""
         b = x.shape[0]
         n = self._mesh_width()
         min_batch = 2 * n if self._n_dev is None else n
-        with telemetry.dispatch(kernel, self.platform, b, x.nbytes) as rec:
+        with telemetry.dispatch(kernel, self.platform, b, x.nbytes, op) as rec:
             if n > 1 and b >= min_batch:
                 out = self._apply_mesh(key, x, n, rec)
                 telemetry.mesh_engaged(kernel, self.platform, n)
@@ -253,11 +256,11 @@ class EcCuda:
             bucket = bucket_batch(b)
             telemetry.record_cache_event("ec_dispatch_bucket", bucket == b)
             rec.pad(b, bucket)
-            with rec.transfer():
+            with rec.transfer("h2d", x.nbytes):
                 xd = pad_to_bucket(_host_tensor(x).to(self.device), bucket)
-            with rec.compute():
+            with rec.compute(nbytes=x.nbytes):
                 out = gf_bitmatmul_cuda(self._bitmat(key, self.device), xd)
-            with rec.transfer():
+            with rec.transfer("d2h", b * out[0].numel()):
                 return out[:b].cpu().numpy()
 
     def _apply_mesh(self, key, x: np.ndarray, n: int,
@@ -275,17 +278,17 @@ class EcCuda:
         bitmats = [self._bitmat(key, dev) for dev in mesh.devices]
         rows = mesh_rows(b, n)
         rec.pad(b, rows)
-        with rec.transfer():
+        with rec.transfer("h2d", x.nbytes):
             parts = mesh.scatter(_host_tensor(x), rows)
-        with rec.compute(mesh.streams):
+        with rec.compute(mesh.streams, x.nbytes):
             outs = ec_apply_mesh(mesh, bitmats, parts)
-        with rec.transfer():
+        with rec.transfer("d2h", b * outs[0][0].numel()):
             return mesh.gather(outs)[:b].numpy()
 
     def encode(self, data: np.ndarray) -> np.ndarray:
         """(B, k, S) data shards -> (B, m, S) parity shards."""
         self._check(data, "encode")
-        return self._apply(None, data, "ec_encode")
+        return self._apply(None, data, "ec_encode", "encode")
 
     def encode_and_hash(
         self, data: np.ndarray
@@ -302,27 +305,31 @@ class EcCuda:
             return self.encode(data), None
         bucket = bucket_batch(b)
         telemetry.record_cache_event("ec_batch_bucket", bucket == b)
-        with telemetry.dispatch("ec_encode_hash", self.platform, b, data.nbytes) as rec:
+        with telemetry.dispatch("ec_encode_hash", self.platform, b, data.nbytes,
+                                "encode") as rec:
             rec.pad(b, bucket)
-            with rec.transfer():
+            with rec.transfer("h2d", data.nbytes):
                 x = pad_to_bucket(_host_tensor(data).to(self.device), bucket)
-            with rec.compute():
+            with rec.compute(nbytes=data.nbytes):
                 parity_d, hashes = encode_hash_tensor(self._enc_bitmat, x)
-            with rec.transfer():
+            with rec.transfer("d2h", b * (parity_d[0].numel() + hashes[0].numel())):
                 parity = parity_d[:b].cpu().numpy()
                 hashes_np = hashes[:b].cpu().numpy()
         return parity, hashes_np
 
     def reconstruct(
-        self, shards: np.ndarray, present: list[int], want: list[int]
+        self, shards: np.ndarray, present: list[int], want: list[int],
+        op: str = "reconstruct",
     ) -> np.ndarray:
         """shards: (B, >=k, S) surviving shards ordered as `present`.
         Returns (B, len(want), S).  One kernel serves every erasure
-        pattern; the pattern only changes the small matrix argument."""
+        pattern; the pattern only changes the small matrix argument.
+        `op` labels the dispatch's stages: "decode" for a degraded read's
+        reconstruction."""
         self._check(shards, "reconstruct", exact=False)
         key = (tuple(present[: self.k]), tuple(want))
         telemetry.record_cache_event("ec_recon_matrix", key in self._recon_cache)
         if key not in self._recon_cache:
             rmat = gf.reconstruction_matrix(self.k, self.m, list(key[0]), list(want))
             self._recon_cache[key] = coding_state_from_numpy(rmat, self.device)["bitmat"]
-        return self._apply(key, shards[:, : self.k, :], "ec_reconstruct")
+        return self._apply(key, shards[:, : self.k, :], "ec_reconstruct", op)

@@ -176,15 +176,41 @@ class Tracer:
         finally:
             _current.reset(token)
             s.end_ns = time.time_ns()
-            # export buffer fills only when a sink is configured; hooks
-            # (flight recorder) see every span either way
-            if self.sink is not None and len(self._buf) < MAX_BUFFER:
-                self._buf.append(s)
-            for hook in self._hooks:
-                try:
-                    hook(s)
-                except Exception as e:  # noqa: BLE001 — hooks must not fail spans
-                    logger.debug("span hook failed: %r", e)
+            self._finish(s)
+
+    def record(self, name: str, start_ns: int, end_ns: int, **attrs) -> None:
+        """A finished span over an interval stamped elsewhere (`time.time_ns`),
+        child of the current span: for a wait that no `with` block can
+        cover, such as a hand-off between two threads.  Nothing when
+        tracing is off."""
+        if not self.enabled:
+            return
+        s = Span(name, _current.get(), attrs)
+        s.start_ns, s.end_ns = start_ns, end_ns
+        self._finish(s)
+
+    @contextmanager
+    def adopt(self, parent: "Span | None"):
+        """Make `parent` the current span inside the block, whatever the
+        context had: for work that a task serving many requests does on
+        behalf of one of them, such as a batch dispatch filed under the
+        request whose entry opened the batch."""
+        token = _current.set(parent)
+        try:
+            yield
+        finally:
+            _current.reset(token)
+
+    def _finish(self, s: Span) -> None:
+        # export buffer fills only when a sink is configured; hooks
+        # (flight recorder) see every span either way
+        if self.sink is not None and len(self._buf) < MAX_BUFFER:
+            self._buf.append(s)
+        for hook in self._hooks:
+            try:
+                hook(s)
+            except Exception as e:  # noqa: BLE001 — hooks must not fail spans
+                logger.debug("span hook failed: %r", e)
 
     def current(self) -> Span | None:
         return _current.get()
