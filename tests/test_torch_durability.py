@@ -43,6 +43,9 @@ from garage_tpu_torch.tools import block_cluster as bc
 from garage_tpu_torch.utils import config as t_config
 from garage_tpu_torch.utils import flight
 from garage_tpu_torch.utils.data import blake2sum
+from time_limits import time_limit
+
+_limit = time_limit(120)  # a stalled test fails instead of holding the run
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)

@@ -42,6 +42,9 @@ from garage_tpu_torch.rpc.layout import manager as t_manager
 from garage_tpu_torch.rpc.layout import types as t_types
 from garage_tpu_torch.tools import block_cluster as bc
 from garage_tpu_torch.utils import flight as t_flight
+from time_limits import time_limit
+
+_limit = time_limit(120)  # a stalled test fails instead of holding the run
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)

@@ -39,6 +39,9 @@ from garage_tpu_torch.utils.data import blake2sum
 from garage_tpu_torch.utils.config import BlockConfig
 from garage_tpu_torch.utils.error import Error
 from garage_tpu_torch.utils.metrics import registry
+from time_limits import time_limit
+
+_limit = time_limit(120)  # a stalled test fails instead of holding the run
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)

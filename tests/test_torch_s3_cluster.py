@@ -34,6 +34,9 @@ from garage_tpu_torch.rpc.telemetry_digest import DigestCollector
 from garage_tpu_torch.tools import s3_cluster
 from garage_tpu_torch.utils.data import blake2sum
 from test_torch_s3 import s3_mirror
+from time_limits import time_limit
+
+_limit = time_limit(120)  # a stalled test fails instead of holding the run
 
 # the suite runs in parallel worker processes: one torch thread each keeps
 # them from oversubscribing the cores (it is no slower at these sizes)

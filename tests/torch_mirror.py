@@ -14,7 +14,6 @@ tests/test_torch_left_out_mirror.py instead, each under its own time
 limit.
 """
 
-import faulthandler
 import functools
 import importlib
 import os
@@ -27,6 +26,7 @@ import pytest
 
 from garage_tpu_torch.block.codec.ec import EcCodec
 from garage_tpu_torch.ops.ec_cuda import EcCuda
+from time_limits import time_limit  # noqa: F401 -- re-exported to the port's test files
 
 TESTS = Path(__file__).resolve().parent
 CPU = {"enable": False}  # the port's nodes run the kernels' plain versions
@@ -224,20 +224,6 @@ def assert_mirror_whole(ref_file: str, mirror: types.ModuleType, left_out: tuple
     assert {k for k in vars(mirror) if k.startswith("test_")} == want - set(left_out), ref_file
     assert not re.search(r"\bgarage_tpu\b(?!_torch)", mirror.mirror_source), ref_file
     assert not re.search(r"^\s*from test_", mirror.mirror_source, flags=re.M), ref_file
-
-
-def time_limit(seconds: float):
-    """An autouse fixture for a test module: a test still running after
-    `seconds` dumps every thread's stack and ends its process, so no test
-    can hold the suite past its clock."""
-
-    @pytest.fixture(autouse=True)
-    def _time_limit():
-        faulthandler.dump_traceback_later(seconds, exit=True)
-        yield
-        faulthandler.cancel_dump_traceback_later()
-
-    return _time_limit
 
 
 # --- twins: a reference node and a port node with the same node key ---------
